@@ -1,0 +1,468 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. set-up: the card's name and power limit, and the CUDA kernels built
+   from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
+2. kernel check: each kernel against its plain PyTorch version on the
+   card at the shapes the serving path gives it, then timed beside the
+   plain version, the PyTorch library call that computes the same
+   function, and the least time the card could take;
+3. serve: ``PagedServeEngine`` on full-width qwen2-7b (random bf16
+   weights from a seed) answers 8 shared-prefix requests of 16 greedy
+   tokens; every request must end OK and the paged-decode kernel must
+   have launched once per layer per decode tick.  Then one decode tick
+   on an identical pool through the plain path must give the same
+   logits (relative error < 2e-2, and the kernel path no further from a
+   float32 run of the tick than 1.5x the plain path), and the trace
+   replayed through the plain path may differ only at near-ties (top-2
+   margin < 0.05);
+4. profile: one decode tick and one prefill chunk, host wall time
+   against device time.
+
+The second-to-last line is a JSON record of every kernel, the last line
+``{"ok": true, "device": {...}}``.  It needs one GPU, ``nvcc`` (under
+``$CUDA_HOME`` or ``/usr/local/cuda``) and no network; it never imports
+jax or the reference package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# NVIDIA H100 SXM data sheet, dense: HBM3 bandwidth and bf16 tensor rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+
+SERVE = dict(arch="qwen2-7b", requests=8, n_steps=16, prefix_len=128,
+             max_len=256, max_batch=8, seed=0)
+KERNEL_ATOL, KERNEL_RTOL = 2e-2, 1e-2     # ~2 bf16 ulps at |x| <= 2
+LOGIT_REL_TOL = 2e-2
+
+
+class Failure(Exception):
+    """A phase failed; the message says which and why."""
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise Failure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, n: int, flush) -> float:
+    """Mean device time of ``fn`` over ``n`` calls (after two warm-up
+    calls), each timed by CUDA events with L2 flushed before it, as the
+    serving path finds it after the other layers' weights went through."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(n):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in times) / n
+
+
+# -- phase 1 --------------------------------------------------------------
+
+def phase_setup(torch):
+    from repro_torch.kernels import build
+    card = card_line()
+    print(f"card: {card}")
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
+    logs = build.build(names)
+    print(f"build: {len(names)} kernel sources in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({len(logs)} compiled, {len(names) - len(logs)} cached)")
+    for name in names:
+        for line in build.build_logs(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+    return card
+
+
+# -- phase 2 --------------------------------------------------------------
+
+def paged_decode_case(torch, cfg, page: int, nb: int, seed: int):
+    """The serving path's decode-tick operands at full width: B = 8 slots
+    of ragged length (partial pages, a page boundary, an idle slot at
+    kv_len 1 on the null block), tables whose unused slots point at
+    null block 0, which holds finite poison."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, KV, hd, H = 8, cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    P = B * nb + 1
+    dt = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    q = randn(B, H, hd)
+    k_pool, v_pool = randn(P, page, KV, hd), randn(P, page, KV, hd)
+    k_pool[0], v_pool[0] = 30.0, -30.0
+    lens = [193, 130, 64, 1, 150, 77, 200, nb * page]
+    tables = torch.zeros((B, nb), dtype=torch.int32)
+    for b, n in enumerate(lens):
+        if b == 3:
+            continue                                # idle slot: all null
+        used = math.ceil(n / page)
+        tables[b, :used] = torch.arange(1 + b * nb, 1 + b * nb + used)
+    return (q, k_pool, v_pool, tables.to("cuda"),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def phase_kernels(torch, cfg, page: int, nb: int):
+    import torch.nn.functional as F
+    from repro_torch.kernels import (paged_decode_attention,
+                                     paged_decode_attention_plain)
+    q, kp, vp, tables, lens = paged_decode_case(torch, cfg, page, nb, seed=1)
+    got = paged_decode_attention(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    want = paged_decode_attention_plain(q, kp, vp, tables, lens)
+    err = (got.float() - want.float()).abs()
+    max_abs_err = float(err.max())
+    bad = err > KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+    check(not bool(bad.any()),
+          f"paged_decode_attention disagrees with its plain version: max "
+          f"abs err {max_abs_err} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL})")
+    check(bool(torch.isfinite(got).all()), "paged_decode_attention: "
+          "non-finite output")
+    print(f"paged_decode_attention B=8 H={cfg.n_heads} KV={cfg.n_kv_heads} "
+          f"hd={cfg.hd} page={page} bf16: max_abs_err {max_abs_err:.3g}, "
+          "null-block poison ignored")
+
+    # the library yardstick: SDPA over the cache already gathered dense
+    B, H, hd = q.shape
+    kd = kp[tables.long()].reshape(B, -1, cfg.n_kv_heads, hd).transpose(1, 2)
+    vd = vp[tables.long()].reshape(B, -1, cfg.n_kv_heads, hd).transpose(1, 2)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_err = float((library()[:, :, 0].float() - want.float()).abs().max())
+    flush_buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+
+    def flush():
+        flush_buf.zero_()
+
+    ms = time_ms(torch, lambda: paged_decode_attention(q, kp, vp, tables,
+                                                       lens), 100, flush)
+    plain_ms = time_ms(torch, lambda: paged_decode_attention_plain(
+        q, kp, vp, tables, lens), 20, flush)
+    library_ms = time_ms(torch, library, 100, flush)
+    el = q.element_size()
+    rows = int(lens.sum())
+    nbytes = (2 * q.numel() * el + tables.numel() * 4 + lens.numel() * 4
+              + 2 * rows * cfg.n_kv_heads * hd * el)
+    flops = 4 * rows * H * hd
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"paged_decode_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+          f" ms, sdpa on the gathered cache {library_ms:.4f} ms (max abs "
+          f"err vs plain {lib_err:.3g}), bound {bound_ms:.5f} ms "
+          f"({bound_by}: {nbytes} bytes, {flops} flops)")
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:159",
+            "launches": None, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+# -- phase 3 --------------------------------------------------------------
+
+def serve_trace(vocab: int):
+    from repro_torch.serve import get_trace
+    reqs = get_trace("shared_prefix")(SERVE["requests"], vocab,
+                                      seed=SERVE["seed"],
+                                      prefix_len=SERVE["prefix_len"])
+    for r in reqs:
+        r.n_steps = SERVE["n_steps"]
+    return reqs
+
+
+def new_engine(cfg, params):
+    from repro_torch.serve import PagedServeEngine
+    return PagedServeEngine(cfg, params, max_len=SERVE["max_len"],
+                            max_batch=SERVE["max_batch"], device="cuda")
+
+
+def phase_serve(torch, cfg, params):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import OK
+    from repro_torch.serve.parity import NEAR_TIE, divergences
+
+    # warm-up on a throwaway engine: cuBLAS handles, the kernel library
+    warm = serve_trace(cfg.vocab_size)[:2]
+    for r in warm:
+        r.n_steps = 2
+    new_engine(cfg, params).run(warm)
+
+    reqs = serve_trace(cfg.vocab_size)
+    eng = new_engine(cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts())
+    statuses = [r.status for r in results]
+    check(statuses == [OK] * len(reqs), f"statuses {statuses}")
+    check(stats.tokens == SERVE["requests"] * SERVE["n_steps"],
+          f"{stats.tokens} tokens emitted")
+    for r in results:
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              "token out of vocabulary range")
+    want = cfg.n_layers * stats.decode_steps
+    check(launches["paged_decode_attention"] == want,
+          f"paged_decode_attention launched "
+          f"{launches['paged_decode_attention']} times, want n_layers x "
+          f"decode ticks = {want}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"PagedServeEngine {cfg.name} bf16, {len(reqs)} shared-prefix "
+          f"requests x {SERVE['n_steps']} greedy tokens, page {eng.page}: "
+          f"{stats.tokens} tokens in {wall:.3f} s = "
+          f"{stats.tokens / wall:.1f} tok/s, {stats.ticks} ticks "
+          f"({stats.decode_steps} decode, {stats.prefill_chunks} prefill "
+          f"chunks), prefix hit rate {stats.prefix_hit_rate:.3f}, launches "
+          f"{launches}, peak device memory {peak:.2f} GiB")
+
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    logit_check(torch, cfg, plain_cfg, params, reqs)
+
+    plain = new_engine(plain_cfg, params)
+    p_results, p_stats = plain.run(reqs)
+    check([r.status for r in p_results] == [OK] * len(reqs),
+          "plain-path replay did not finish every request OK")
+    check(p_stats.ticks == stats.ticks, f"plain replay took "
+          f"{p_stats.ticks} ticks, the kernel path {stats.ticks}")
+    div = divergences(plain, reqs, p_results, results)
+    for d in div:
+        print(f"request {d['request']}: kernel and plain paths diverge at "
+              f"step {d['step']}, plain top-2 margin {d['margin']}")
+    check(all(d["near_tie"] for d in div),
+          f"greedy streams diverge above the {NEAR_TIE} near-tie margin")
+    print(f"greedy tokens: {len(reqs) - len(div)}/{len(reqs)} requests "
+          f"identical to the plain path, the rest diverge at near-ties")
+    return launches
+
+
+def prefilled_slots(eng, reqs):
+    """Every request's prompt prefilled into its own blocks of ``eng``'s
+    pool: returns (pending tokens, tables, lens) for one decode tick."""
+    import numpy as np
+    B, NB = eng.max_batch, eng.nb_table
+    tables = np.zeros((B, NB), np.int32)
+    pend = np.zeros((B,), np.int32)
+    lens = np.zeros((B,), np.int32)
+    C = eng.prefill_chunk
+    for b, r in enumerate(reqs[:B]):
+        s = r.prompt.shape[0]
+        tables[b, :math.ceil(s / eng.page)] = \
+            1 + b * NB + np.arange(math.ceil(s / eng.page))
+        for pos in range(0, s, C):
+            nv = min(C, s - pos)
+            toks = np.zeros((1, C), np.int32)
+            toks[0, :nv] = r.prompt[pos:pos + nv]
+            logits = eng.prefill(toks, tables[b:b + 1], pos, nv)
+        pend[b] = int(logits.argmax())
+        lens[b] = s
+    return pend, tables, lens
+
+
+def logit_check(torch, cfg, plain_cfg, params, reqs):
+    """One decode tick on identical pools through the kernel path, the
+    plain path, and the plain path in float32 (weights and pools upcast)
+    as the yardstick of what bf16 rounding alone costs.  Relative error
+    is ||a - b|| / ||b|| over all (B, V) logits."""
+    from repro_torch.models import paged_decode_step
+    from repro_torch.models.layers import DTYPES
+    eng = new_engine(cfg, params)
+    pend, tables, lens = prefilled_slots(eng, reqs)
+    args = [torch.tensor(a, device="cuda")
+            for a in (pend[:, None], tables, lens)]
+    out = {}
+    f32_cfg = dataclasses.replace(plain_cfg, dtype="float32")
+    for name, c in (("kernel", cfg), ("plain", plain_cfg), ("f32", f32_cfg)):
+        pools = {n: t.clone().to(DTYPES[c.dtype])
+                 for n, t in eng.cache.pools.items()}
+        p = params if c.dtype == cfg.dtype else _map(
+            lambda t: t.to(DTYPES[c.dtype]), params)
+        out[name] = paged_decode_step(c, p, pools, *args).float()
+        del p, pools
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(out["kernel"]).all()), "non-finite logits")
+
+    def rel(a, b):
+        return float((out[a] - out[b]).norm() / out[b].norm())
+
+    r, rk, rp = rel("kernel", "plain"), rel("kernel", "f32"), rel("plain", "f32")
+    r_max = float((out["kernel"] - out["plain"]).abs().max()
+                  / out["plain"].abs().max())
+    print(f"decode tick logits on identical pools: kernel vs plain path "
+          f"relative error {r:.3g} (limit {LOGIT_REL_TOL}; max-abs ratio "
+          f"{r_max:.3g}); against float32: kernel path {rk:.3g}, plain path "
+          f"{rp:.3g}")
+    check(r < LOGIT_REL_TOL, f"decode-tick logits: kernel vs plain path "
+          f"relative error {r:.3g} >= {LOGIT_REL_TOL}")
+    check(rk <= 1.5 * rp, f"the kernel path is further from float32 "
+          f"({rk:.3g}) than 1.5x the plain path ({rp:.3g})")
+
+
+# -- phase 4 --------------------------------------------------------------
+
+def profile(torch, label: str, fn, n_wall: int = 5):
+    """Host wall time of ``fn`` (mean of ``n_wall`` calls, each ending in
+    a synchronize, no profiler attached) against the device time of its
+    kernels in one profiled call: the share of a step the card is busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_wall):
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n_wall
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    dev = sum(e.self_device_time_total for e in kernels) / 1e3
+    if dev <= 0:
+        print(f"{label}: wall {wall:.3f} ms, device time not measured "
+              "(the profiler recorded no kernels)")
+        return
+    print(f"{label}: wall {wall:.3f} ms, device kernels {dev:.3f} ms in "
+          f"{sum(e.count for e in kernels)} launches (busy "
+          f"{100 * dev / wall:.1f}%, idle {100 - 100 * dev / wall:.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}")
+
+
+def phase_profile(torch, cfg, params, reqs):
+    import numpy as np
+    eng = new_engine(cfg, params)
+    pend, tables, lens = prefilled_slots(eng, reqs)
+    profile(torch, f"paged decode tick (B={eng.max_batch}, lens "
+                   f"{int(lens.min())}..{int(lens.max())})",
+            lambda: eng.decode(pend, tables, lens).argmax(-1).cpu())
+    toks = np.zeros((1, eng.prefill_chunk), np.int32)
+    profile(torch, f"paged prefill chunk ({eng.prefill_chunk} rows)",
+            lambda: eng.prefill(toks, tables[:1], 0, eng.prefill_chunk)
+            .argmax().cpu())
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: FAILED: torch is not importable: {e}",
+              file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAILED: torch.cuda.is_available() is False; this "
+              "script measures the port on an NVIDIA GPU and has no CPU "
+              "mode", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: FAILED: {ROOT / 'src' / 'repro_torch'} is "
+              "missing; run this script from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    t_start = time.perf_counter()
+    try:
+        resolve_device("cuda")
+        card = phase_setup(torch)
+        cfg = get_config(SERVE["arch"])
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SERVE["seed"]), device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"{cfg.name} full width: {cfg.n_layers} layers, "
+              f"{n_params / 1e9:.2f} B params ({cfg.dtype}) drawn on the "
+              f"card in {time.perf_counter() - t0:.1f} s")
+        probe = new_engine(cfg, params)
+        record = phase_kernels(torch, cfg, probe.page, probe.nb_table)
+        del probe
+        launches = phase_serve(torch, cfg, params)
+        record["launches"] = launches["paged_decode_attention"]
+        phase_profile(torch, cfg, params, serve_trace(cfg.vocab_size))
+    except Failure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    print(card)
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

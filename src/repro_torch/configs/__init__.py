@@ -1,0 +1,26 @@
+"""Architecture registry (twin of ``repro.configs``).
+
+``get_config(name)`` returns the published config from the module named
+after the architecture.  Only ``qwen2-7b`` is ported so far; the rest of
+the reference's catalog arrives with the layer kinds it needs (ROADMAP
+queue 1).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["ARCHS", "get_config"]
+
+ARCHS = ["qwen2-7b"]
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown or not yet ported architecture {arch!r}; "
+                       f"ported: {ARCHS}")
+    mod = importlib.import_module("repro_torch.configs." + arch.replace("-", "_")
+                                  .replace(".", "_"))
+    return mod.CONFIG

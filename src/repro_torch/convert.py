@@ -1,0 +1,70 @@
+"""Convert the reference's parameters to the port's layout.
+
+The input is the reference's parameter pytree with every leaf turned
+into a numpy array (``jax.tree.map(np.asarray, params)``); this module
+itself needs neither jax nor the reference package.  The reference
+keeps its first ``first_k_dense`` layers in a list ``layers0`` and the
+rest as a tuple of per-slot stacks ``layers``, each leaf with a leading
+``n_periods`` axis (slot ``s`` of period ``p`` is global layer
+``first_k + p * period + s``).  The port keeps one dict per layer, in
+global order.  bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are
+carried bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Union
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = ["to_tensor", "convert_params"]
+
+
+def to_tensor(a, device: Union[str, torch.device]) -> torch.Tensor:
+    """One numpy leaf as a tensor on ``device`` (bf16 kept bit-exact)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_tree(v, fn) for v in x]
+    return fn(x)
+
+
+def convert_params(np_params: Dict, *,
+                   device: Union[str, torch.device, None] = "cuda") -> Dict:
+    """The port's parameter dict from the reference's numpy pytree."""
+    dev = resolve_device(device)
+    out: Dict = {k: _tree(v, lambda a: to_tensor(a, dev))
+                 for k, v in np_params.items()
+                 if k not in ("layers0", "layers")}
+    layers: List[Dict] = [_tree(w, lambda a: to_tensor(a, dev))
+                          for w in np_params.get("layers0", [])]
+    slots = list(np_params["layers"])
+    if slots:
+        n_periods = np.asarray(next(_leaves(slots[0]))).shape[0]
+        for p in range(n_periods):
+            for slot in slots:
+                layers.append(_tree(slot, lambda a: to_tensor(a[p], dev)))
+    out["layers"] = layers
+    return out
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _leaves(v)
+    else:
+        yield x

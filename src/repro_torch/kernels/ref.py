@@ -1,0 +1,55 @@
+"""Plain oracles for the port's kernels (twin of ``repro.kernels.ref``).
+
+Each oracle is the most obviously correct formulation (full softmax over
+a dense cache), deliberately not the blocked algorithm the kernels use,
+so agreement checks the algebra and not just the implementation.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["decode_attention_ref", "paged_decode_attention_ref"]
+
+
+def _grouped_full_attn(q, k, v, *, causal, kv_len=None):
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd).float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float())
+    s = s / math.sqrt(hd)
+    neg = torch.tensor(-math.inf, device=q.device)
+    if causal:
+        i = torch.arange(S, device=q.device)[:, None]
+        j = torch.arange(T, device=q.device)[None, :]
+        s = torch.where(j <= i, s, neg)
+    if kv_len is not None:
+        kl = torch.as_tensor(kv_len, device=q.device)
+        if kl.dim() == 1:                     # per-request (B,) lengths
+            kl = kl[:, None, None, None, None]
+        s = torch.where(torch.arange(T, device=q.device) < kl, s, neg)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    return o.reshape(B, S, H, -1).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, kv_len):
+    """q (B, H, hd) single-token attention vs cache prefix < kv_len
+    (an int scalar, or a per-request (B,) vector)."""
+    return _grouped_full_attn(q[:, None], k, v, causal=False,
+                              kv_len=kv_len)[:, 0]
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, kv_len):
+    """Gather each request's blocks from the (P, page, KV, hd) pools into
+    a dense (B, NB*page, KV, hd) cache, then run the plain decode oracle
+    with per-request lengths."""
+    B = q.shape[0]
+    KV, hd = k_pool.shape[2], k_pool.shape[3]
+    tables = block_tables.long()
+    k = k_pool[tables].reshape(B, -1, KV, hd)
+    v = v_pool[tables].reshape(B, -1, KV, hd)
+    return decode_attention_ref(q, k, v, kv_len)

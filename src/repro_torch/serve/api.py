@@ -1,0 +1,100 @@
+"""The serve request/result schema (twin of ``repro.serve.api``).
+
+* :class:`Request` — one serve request: prompt tokens, tokens to
+  generate, arrival tick, optional deadline and cancel tick;
+* :class:`RequestResult` — per-request outcome: generated tokens plus
+  the scheduling record and terminal status;
+* :class:`RunStats` — the run-level accounting; indexable by name
+  (``stats["tokens"]``) like the reference's.
+
+The reference still coerces legacy ``(prompt, n_steps[, arrival])``
+tuples with a deprecation warning; the port takes :class:`Request`
+objects only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+
+__all__ = ["Request", "RequestResult", "RunStats", "as_requests"]
+
+
+@dataclasses.dataclass
+class Request:
+    """``prompt`` (1-D int32 tokens), ``n_steps`` tokens to generate,
+    ``arrival`` tick at which it may be admitted.  ``deadline`` is the
+    tick it must have finished by (else ``TIMEOUT``, partial tokens
+    kept); ``cancel_at`` the tick the client gives up (``CANCELLED``)."""
+
+    prompt: np.ndarray
+    n_steps: int
+    arrival: int = 0
+    deadline: Optional[int] = None
+    cancel_at: Optional[int] = None
+
+
+@dataclasses.dataclass
+class RequestResult:
+    tokens: np.ndarray              # (n_steps,) generated tokens
+    prompt_len: int
+    arrival: int                    # tick the request became eligible
+    admitted: int                   # tick it was admitted (-1: never)
+    finished: int                   # tick its last token was emitted
+    emit_times: List[float]         # perf_counter() per emitted token
+    admit_time: float = 0.0         # perf_counter() at admission (TTFT base)
+    prefix_blocks: int = 0          # pages taken from the prefix cache
+    status: str = "OK"              # terminal state (serve.resilience)
+    detail: str = ""                # human-readable reason for non-OK ends
+    preemptions: int = 0            # times this request was evicted/requeued
+
+
+@dataclasses.dataclass
+class RunStats:
+    """Run-level accounting of one ``run(trace)``."""
+
+    requests: int = 0
+    tokens: int = 0                 # requested tokens actually emitted
+    ticks: int = 0
+    decode_steps: int = 0
+    prefill_chunks: int = 0
+    prefix_blocks_reused: int = 0
+    prefix_blocks_needed: int = 0
+    prefix_hit_rate: float = 0.0
+    occupancy_mean: float = 0.0
+    occupancy_max: float = 0.0
+    completed: int = 0              # requests that ended with status OK
+    shed: int = 0                   # rejected by admission control
+    timeouts: int = 0               # deadline crossed before completion
+    cancelled: int = 0              # client cancel_at reached
+    preemptions: int = 0            # evictions (incl. re-queues that ran OK)
+    stalled_ticks: int = 0          # data-plane ticks lost to stall faults
+
+    def __getitem__(self, key: str) -> Any:
+        try:
+            return getattr(self, key)
+        except AttributeError:
+            raise KeyError(key) from None
+
+
+def as_requests(trace: Sequence[Request]) -> List[Request]:
+    """Validate a trace and normalise it in place: prompts flattened to
+    1-D int32, ticks and counts to ints."""
+    reqs: List[Request] = []
+    for i, r in enumerate(trace):
+        if not isinstance(r, Request):
+            raise TypeError(f"request {i}: expected a repro_torch.serve."
+                            f"Request, got {type(r).__name__}")
+        r.prompt = np.asarray(r.prompt, np.int32).reshape(-1)
+        r.n_steps = int(r.n_steps)
+        r.arrival = int(r.arrival)
+        if r.deadline is not None:
+            r.deadline = int(r.deadline)
+        if r.cancel_at is not None:
+            r.cancel_at = int(r.cancel_at)
+        if r.n_steps < 1:
+            raise ValueError(f"request {i}: n_steps={r.n_steps} < 1")
+        reqs.append(r)
+    return reqs

@@ -1,0 +1,57 @@
+"""Import guard: the port and chip_smoke.py never load jax or the
+reference package, and entry points never fall back to the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, importlib.util, json, pkgutil, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+spec = importlib.util.spec_from_file_location(
+    "chip_smoke", sys.argv[1] + "/chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"modules": names, "leaked": leaked}))
+"""
+
+
+def test_port_and_chip_smoke_never_import_jax_or_reference():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    for mod in ("repro_torch.kernels.decode_attention",
+                "repro_torch.serve.paged_engine", "repro_torch.convert",
+                "repro_torch.models.attention"):
+        assert mod in got["modules"]
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import PagedKVCache, PagedServeEngine
+    cfg = get_config("qwen2-7b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        PagedServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCache(cfg, n_blocks=3)
+    with pytest.raises(RuntimeError, match="requested"):
+        init_params(cfg, torch.Generator().manual_seed(0))
