@@ -8,10 +8,13 @@ Phases (any failure exits non-zero and prints no result line):
 1. set-up: the card's name and power limit, and the CUDA kernels built
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. kernel check: each kernel against its plain PyTorch version on the
-   card at the shapes the serving path gives it, then timed beside the
-   plain version, the PyTorch library call that computes the same
+   card at the shapes the serving paths give it (paged decode at B = 8;
+   flash attention over a 2048-row causal prefill, a ragged 2000-row one
+   and one with kv_len < T; contiguous decode at B = 8 over a 2048-row
+   cache of mixed lengths, rows past them poisoned), then timed beside
+   the plain version, the PyTorch library call that computes the same
    function, and the least time the card could take;
-3. serve: ``PagedServeEngine`` on full-width qwen2-7b (random bf16
+3. paged serve: ``PagedServeEngine`` on full-width qwen2-7b (random bf16
    weights from a seed) answers 8 shared-prefix requests of 16 greedy
    tokens; every request must end OK and the paged-decode kernel must
    have launched once per layer per decode tick.  Then one decode tick
@@ -20,8 +23,18 @@ Phases (any failure exits non-zero and prints no result line):
    float32 run of the tick than 1.5x the plain path), and the trace
    replayed through the plain path may differ only at near-ties (top-2
    margin < 0.05);
-4. profile: one decode tick and one prefill chunk, host wall time
-   against device time.
+4. sync serve: ``ServeEngine(max_len=2048)`` on the same model serves
+   prompts of 2000, 1537, 1024 and 517 tokens one at a time
+   (``run(batch=1)``), then one batch of 4 equal 1024-token prompts
+   (``generate``), 16 greedy tokens each; the flash kernel must have
+   launched once per layer per prefill and the decode kernel once per
+   layer per decode step.  One decode step's logits against the plain
+   path, and the greedy streams against the plain path's, as in 3;
+5. engines against each other: the sync engine replays phase 3's trace
+   and the paged engine's streams may differ from it only at near-ties;
+6. profile: a paged decode tick and prefill chunk, a sync 2048-row
+   prefill and a sync B = 4 decode step, host wall time against device
+   time.
 
 The second-to-last line is a JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  It needs one GPU, ``nvcc`` (under
@@ -47,6 +60,8 @@ BF16_FLOPS_PER_S = 989e12
 
 SERVE = dict(arch="qwen2-7b", requests=8, n_steps=16, prefix_len=128,
              max_len=256, max_batch=8, seed=0)
+SYNC = dict(max_len=2048, prompts=(2000, 1537, 1024, 517), n_steps=16,
+            batch=4, batch_len=1024, seed=1)
 KERNEL_ATOL, KERNEL_RTOL = 2e-2, 1e-2     # ~2 bf16 ulps at |x| <= 2
 LOGIT_REL_TOL = 2e-2
 
@@ -86,6 +101,35 @@ def time_ms(torch, fn, n: int, flush) -> float:
         times.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in times) / n
+
+
+def held_to_plain(torch, name: str, got, want) -> float:
+    """Check a kernel's output against its plain version's: finite and
+    within atol + rtol |want| everywhere; returns the max abs error."""
+    err = (got.float() - want.float()).abs()
+    max_abs_err = float(err.max())
+    bad = err > KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
+    check(not bool(bad.any()),
+          f"{name} disagrees with its plain version: max abs err "
+          f"{max_abs_err} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL})")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    return max_abs_err
+
+
+def bound(nbytes: int, flops: int):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate
+    and the operations over the bf16 tensor-core rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
+def l2_flush(torch):
+    """A function that overwrites 256 MB on the card, which flushes its
+    50 MB L2 cache."""
+    buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    return buf.zero_
 
 
 # -- phase 1 --------------------------------------------------------------
@@ -146,14 +190,7 @@ def phase_kernels(torch, cfg, page: int, nb: int):
     got = paged_decode_attention(q, kp, vp, tables, lens)
     torch.cuda.synchronize()
     want = paged_decode_attention_plain(q, kp, vp, tables, lens)
-    err = (got.float() - want.float()).abs()
-    max_abs_err = float(err.max())
-    bad = err > KERNEL_ATOL + KERNEL_RTOL * want.float().abs()
-    check(not bool(bad.any()),
-          f"paged_decode_attention disagrees with its plain version: max "
-          f"abs err {max_abs_err} (atol {KERNEL_ATOL}, rtol {KERNEL_RTOL})")
-    check(bool(torch.isfinite(got).all()), "paged_decode_attention: "
-          "non-finite output")
+    max_abs_err = held_to_plain(torch, "paged_decode_attention", got, want)
     print(f"paged_decode_attention B=8 H={cfg.n_heads} KV={cfg.n_kv_heads} "
           f"hd={cfg.hd} page={page} bf16: max_abs_err {max_abs_err:.3g}, "
           "null-block poison ignored")
@@ -171,11 +208,7 @@ def phase_kernels(torch, cfg, page: int, nb: int):
                                               enable_gqa=True)
 
     lib_err = float((library()[:, :, 0].float() - want.float()).abs().max())
-    flush_buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-
-    def flush():
-        flush_buf.zero_()
-
+    flush = l2_flush(torch)
     ms = time_ms(torch, lambda: paged_decode_attention(q, kp, vp, tables,
                                                        lens), 100, flush)
     plain_ms = time_ms(torch, lambda: paged_decode_attention_plain(
@@ -186,10 +219,7 @@ def phase_kernels(torch, cfg, page: int, nb: int):
     nbytes = (2 * q.numel() * el + tables.numel() * 4 + lens.numel() * 4
               + 2 * rows * cfg.n_kv_heads * hd * el)
     flops = 4 * rows * H * hd
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    bound_ms, bound_by = bound(nbytes, flops)
     print(f"paged_decode_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
           f" ms, sdpa on the gathered cache {library_ms:.4f} ms (max abs "
           f"err vs plain {lib_err:.3g}), bound {bound_ms:.5f} ms "
@@ -197,6 +227,135 @@ def phase_kernels(torch, cfg, page: int, nb: int):
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:159",
+            "launches": None, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def flash_records(torch, cfg):
+    """Flash attention at full width (B = 1, 28 query heads over 4 KV
+    heads of 128, bf16): a causal 2048-row prefill (timed), a ragged
+    2000-row one, and a 2048-row one with kv_len 1537, whose rows past
+    kv_len hold finite poison."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    g = torch.Generator(device="cuda").manual_seed(2)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    cases = {"causal S=T=2048": (2048, None), "causal S=T=2000": (2000, None),
+             "causal S=T=2048, kv_len 1537": (2048, 1537)}
+    max_abs_err = 0.0
+    for label, (S, kv_len) in cases.items():
+        q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+        if kv_len is not None:
+            k[:, kv_len:], v[:, kv_len:] = 30.0, -30.0
+        got = flash_attention(q, k, v, causal=True, kv_len=kv_len)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, causal=True, kv_len=kv_len)
+        err = held_to_plain(torch, f"flash_attention ({label})", got, want)
+        max_abs_err = max(max_abs_err, err)
+        print(f"flash_attention {label} H={H} KV={KV} hd={hd} bf16: max abs "
+              f"err {err:.3g}")
+
+    S = 2048
+    q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
+    want = flash_attention_plain(q, k, v, causal=True)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float()
+                     - want.float()).abs().max())
+    flush = l2_flush(torch)
+    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True), 100,
+                 flush)
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(
+        q, k, v, causal=True), 10, flush)
+    library_ms = time_ms(torch, library, 100, flush)
+    pairs = S * (S + 1) // 2                  # (query, key) pairs unmasked
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * pairs * H * hd                # q.k and p.v, 2 flops a MAC
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"flash_attention causal S=T={S}: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms (max abs err vs plain {lib_err:.3g}), bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} flops)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:85",
+            "launches": None, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def decode_record(torch, cfg):
+    """Contiguous-cache decode at full width: B = 8 requests over a
+    2048-row bf16 cache, lengths from 1 to 2048 with the rows past them
+    poisoned (timed); then B = 4 at one scalar length, the shape of the
+    sync engine's batched decode step."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, decode_attention_plain
+    g = torch.Generator(device="cuda").manual_seed(3)
+    H, KV, hd, T = cfg.n_heads, cfg.n_kv_heads, cfg.hd, 2048
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    lens_list = [2048, 1, 1537, 64, 1000, 517, 2000, 129]
+    B = len(lens_list)
+    q, k, v = randn(B, H, hd), randn(B, T, KV, hd), randn(B, T, KV, hd)
+    for b, n in enumerate(lens_list):
+        k[b, n:], v[b, n:] = 30.0, -30.0
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    want = decode_attention_plain(q, k, v, lens)
+    max_abs_err = held_to_plain(torch, "decode_attention", got, want)
+    q4 = randn(4, H, hd)
+    got4 = decode_attention(q4, k[:4], v[:4], 1025)
+    torch.cuda.synchronize()
+    max_abs_err = max(max_abs_err, held_to_plain(
+        torch, "decode_attention (B=4, kv_len 1025)", got4,
+        decode_attention_plain(q4, k[:4], v[:4], 1025)))
+    print(f"decode_attention B={B} T={T} H={H} KV={KV} hd={hd} bf16, lens "
+          f"{lens_list}: max abs err {max_abs_err:.3g}, poisoned rows "
+          "ignored")
+
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    q_lib, k_lib, v_lib = q[:, :, None, :], k.transpose(1, 2), \
+        v.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(q_lib, k_lib, v_lib,
+                                              attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_err = float((library()[:, :, 0].float() - want.float()).abs().max())
+    flush = l2_flush(torch)
+    ms = time_ms(torch, lambda: decode_attention(q, k, v, lens), 100, flush)
+    plain_ms = time_ms(torch, lambda: decode_attention_plain(q, k, v, lens),
+                       20, flush)
+    library_ms = time_ms(torch, library, 100, flush)
+    rows = sum(lens_list)
+    el = q.element_size()
+    nbytes = 2 * q.numel() * el + B * 4 + 2 * rows * KV * hd * el
+    flops = 4 * rows * H * hd
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"decode_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"sdpa {library_ms:.4f} ms (max abs err vs plain {lib_err:.3g}), "
+          f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} "
+          "flops)")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:100",
             "launches": None, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
@@ -263,7 +422,7 @@ def phase_serve(torch, cfg, params):
           f"{launches}, peak device memory {peak:.2f} GiB")
 
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)
-    logit_check(torch, cfg, plain_cfg, params, reqs)
+    paged_logit_check(torch, cfg, plain_cfg, params, reqs)
 
     plain = new_engine(plain_cfg, params)
     p_results, p_stats = plain.run(reqs)
@@ -279,7 +438,7 @@ def phase_serve(torch, cfg, params):
           f"greedy streams diverge above the {NEAR_TIE} near-tie margin")
     print(f"greedy tokens: {len(reqs) - len(div)}/{len(reqs)} requests "
           f"identical to the plain path, the rest diverge at near-ties")
-    return launches
+    return launches, reqs, results
 
 
 def prefilled_slots(eng, reqs):
@@ -305,26 +464,21 @@ def prefilled_slots(eng, reqs):
     return pend, tables, lens
 
 
-def logit_check(torch, cfg, plain_cfg, params, reqs):
-    """One decode tick on identical pools through the kernel path, the
-    plain path, and the plain path in float32 (weights and pools upcast)
-    as the yardstick of what bf16 rounding alone costs.  Relative error
-    is ||a - b|| / ||b|| over all (B, V) logits."""
-    from repro_torch.models import paged_decode_step
+def logit_check(torch, label: str, cfg, plain_cfg, params, state, step):
+    """One decode step on identical copies of ``state`` (a pool or cache
+    pytree) through the kernel path, the plain path, and the plain path
+    in float32 (weights and state upcast) as the yardstick of what bf16
+    rounding alone costs; ``step(cfg, params, state)`` returns the
+    logits.  Relative error is ||a - b|| / ||b|| over all logits."""
     from repro_torch.models.layers import DTYPES
-    eng = new_engine(cfg, params)
-    pend, tables, lens = prefilled_slots(eng, reqs)
-    args = [torch.tensor(a, device="cuda")
-            for a in (pend[:, None], tables, lens)]
     out = {}
     f32_cfg = dataclasses.replace(plain_cfg, dtype="float32")
     for name, c in (("kernel", cfg), ("plain", plain_cfg), ("f32", f32_cfg)):
-        pools = {n: t.clone().to(DTYPES[c.dtype])
-                 for n, t in eng.cache.pools.items()}
+        st = _map(lambda t: t.clone().to(DTYPES[c.dtype]), state)
         p = params if c.dtype == cfg.dtype else _map(
             lambda t: t.to(DTYPES[c.dtype]), params)
-        out[name] = paged_decode_step(c, p, pools, *args).float()
-        del p, pools
+        out[name] = step(c, p, st).float()
+        del p, st
     torch.cuda.empty_cache()
     check(bool(torch.isfinite(out["kernel"]).all()), "non-finite logits")
 
@@ -334,17 +488,129 @@ def logit_check(torch, cfg, plain_cfg, params, reqs):
     r, rk, rp = rel("kernel", "plain"), rel("kernel", "f32"), rel("plain", "f32")
     r_max = float((out["kernel"] - out["plain"]).abs().max()
                   / out["plain"].abs().max())
-    print(f"decode tick logits on identical pools: kernel vs plain path "
+    print(f"{label} logits on identical state: kernel vs plain path "
           f"relative error {r:.3g} (limit {LOGIT_REL_TOL}; max-abs ratio "
           f"{r_max:.3g}); against float32: kernel path {rk:.3g}, plain path "
           f"{rp:.3g}")
-    check(r < LOGIT_REL_TOL, f"decode-tick logits: kernel vs plain path "
+    check(r < LOGIT_REL_TOL, f"{label} logits: kernel vs plain path "
           f"relative error {r:.3g} >= {LOGIT_REL_TOL}")
-    check(rk <= 1.5 * rp, f"the kernel path is further from float32 "
-          f"({rk:.3g}) than 1.5x the plain path ({rp:.3g})")
+    check(rk <= 1.5 * rp, f"{label}: the kernel path is further from "
+          f"float32 ({rk:.3g}) than 1.5x the plain path ({rp:.3g})")
+
+
+def paged_logit_check(torch, cfg, plain_cfg, params, reqs):
+    from repro_torch.models import paged_decode_step
+    eng = new_engine(cfg, params)
+    pend, tables, lens = prefilled_slots(eng, reqs)
+    args = [torch.tensor(a, device="cuda")
+            for a in (pend[:, None], tables, lens)]
+    logit_check(torch, "paged decode tick", cfg, plain_cfg, params,
+                eng.cache.pools,
+                lambda c, p, pools: paged_decode_step(c, p, pools, *args))
 
 
 # -- phase 4 --------------------------------------------------------------
+
+def sync_workload(vocab: int):
+    """The sync phase's requests and its batch, drawn from the seed."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SYNC["seed"])
+    reqs = [Request(prompt=rng.integers(0, vocab, s).astype(np.int32),
+                    n_steps=SYNC["n_steps"]) for s in SYNC["prompts"]]
+    batch = rng.integers(0, vocab, (SYNC["batch"], SYNC["batch_len"])
+                         ).astype(np.int32)
+    return reqs, batch
+
+
+def phase_sync_serve(torch, cfg, params):
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.parity import NEAR_TIE, divergences
+
+    eng = ServeEngine(cfg, params, max_len=SYNC["max_len"], device="cuda")
+    eng.generate(np.arange(16, dtype=np.int32)[None], n_steps=2)   # warm-up
+    reqs, batch = sync_workload(cfg.vocab_size)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, stats = eng.run(reqs)
+    t1 = time.perf_counter()
+    gen = eng.generate(batch, n_steps=SYNC["n_steps"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(launch_counts())
+    prefills = len(reqs) + 1
+    steps = stats.decode_steps + gen.steps
+    for name, per, n in (("flash_attention", "prefills", prefills),
+                         ("decode_attention", "decode steps", steps)):
+        want = cfg.n_layers * n
+        check(launches[name] == want, f"{name} launched {launches[name]} "
+              f"times, want n_layers x {per} = {want}")
+    for r in results:
+        check(len(r.tokens) == SYNC["n_steps"], f"{len(r.tokens)} tokens")
+    for toks in [r.tokens for r in results] + [gen.tokens]:
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              "token out of vocabulary range")
+    check(gen.tokens.shape == (SYNC["batch"], SYNC["n_steps"]),
+          f"generate returned {gen.tokens.shape}")
+    n_run = sum(len(r.tokens) for r in results)
+    print(f"ServeEngine {cfg.name} bf16, max_len {SYNC['max_len']}: "
+          f"run(batch=1) of prompts {list(SYNC['prompts'])} x "
+          f"{SYNC['n_steps']} greedy tokens in {t1 - t0:.3f} s "
+          f"({n_run / (t1 - t0):.1f} tok/s); generate of {SYNC['batch']} x "
+          f"{SYNC['batch_len']}-token prompts x {SYNC['n_steps']} tokens in "
+          f"{t2 - t1:.3f} s ({gen.tokens.size / (t2 - t1):.1f} tok/s); "
+          f"{prefills} prefills, {steps} decode steps, launches {launches}")
+
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    prompt = reqs[0].prompt[None]
+    logits, cache = eng.prefill(prompt)
+    tok = logits.argmax(-1)[:, None]
+    logit_check(torch, f"sync decode step at position {prompt.shape[1]}",
+                cfg, plain_cfg, params, cache,
+                lambda c, p, cc: decode_step(c, p, cc, tok,
+                                             prompt.shape[1])[0])
+    del cache
+
+    plain = ServeEngine(plain_cfg, params, max_len=SYNC["max_len"],
+                        device="cuda")
+    p_results, _ = plain.run(reqs)
+    div = divergences(plain, reqs, p_results, results)
+    for d in div:
+        print(f"request {d['request']}: kernel and plain paths diverge at "
+              f"step {d['step']}, plain top-2 margin {d['margin']}")
+    check(all(d["near_tie"] for d in div),
+          f"greedy streams diverge above the {NEAR_TIE} near-tie margin")
+    print(f"greedy tokens: {len(reqs) - len(div)}/{len(reqs)} requests "
+          f"identical to the plain path, the rest diverge at near-ties")
+    return launches
+
+
+# -- phase 5 --------------------------------------------------------------
+
+def phase_engines(torch, cfg, params, reqs, paged_results):
+    """The sync engine (the greedy oracle) replays the paged phase's
+    trace; the paged engine's streams may differ only at near-ties."""
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.parity import NEAR_TIE, divergences
+    sync = ServeEngine(cfg, params, max_len=SERVE["max_len"], device="cuda")
+    s_results, _ = sync.run(reqs)
+    div = divergences(sync, reqs, s_results, paged_results)
+    for d in div:
+        print(f"request {d['request']}: sync and paged engines diverge at "
+              f"step {d['step']}, sync top-2 margin {d['margin']}")
+    check(all(d["near_tie"] for d in div), f"sync and paged engines "
+          f"diverge above the {NEAR_TIE} near-tie margin")
+    print(f"sync vs paged engine on the {len(reqs)}-request shared-prefix "
+          f"trace: {len(reqs) - len(div)}/{len(reqs)} greedy streams "
+          f"identical, the rest diverge at near-ties")
+
+
+# -- phase 6 --------------------------------------------------------------
+
 
 def profile(torch, label: str, fn, n_wall: int = 5):
     """Host wall time of ``fn`` (mean of ``n_wall`` calls, each ending in
@@ -390,6 +656,24 @@ def phase_profile(torch, cfg, params, reqs):
     profile(torch, f"paged prefill chunk ({eng.prefill_chunk} rows)",
             lambda: eng.prefill(toks, tables[:1], 0, eng.prefill_chunk)
             .argmax().cpu())
+    del eng
+
+
+def phase_sync_profile(torch, cfg, params):
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, max_len=SYNC["max_len"], device="cuda")
+    rng = np.random.default_rng(SYNC["seed"] + 1)
+    prompt = rng.integers(0, cfg.vocab_size, (1, SYNC["max_len"])
+                          ).astype(np.int32)
+    profile(torch, f"sync prefill ({SYNC['max_len']} rows)",
+            lambda: eng.prefill(prompt)[0].argmax(-1).cpu())
+    _, batch = sync_workload(cfg.vocab_size)
+    logits, cache = eng.prefill(batch)
+    tok = logits.argmax(-1)[:, None]
+    pos = batch.shape[1]
+    profile(torch, f"sync decode step (B={batch.shape[0]}, position {pos})",
+            lambda: eng.decode(cache, tok, pos).argmax(-1).cpu())
 
 
 def main() -> int:
@@ -428,17 +712,25 @@ def main() -> int:
               f"{n_params / 1e9:.2f} B params ({cfg.dtype}) drawn on the "
               f"card in {time.perf_counter() - t0:.1f} s")
         probe = new_engine(cfg, params)
-        record = phase_kernels(torch, cfg, probe.page, probe.nb_table)
+        paged = phase_kernels(torch, cfg, probe.page, probe.nb_table)
         del probe
-        launches = phase_serve(torch, cfg, params)
-        record["launches"] = launches["paged_decode_attention"]
+        flash = flash_records(torch, cfg)
+        decode = decode_record(torch, cfg)
+        torch.cuda.empty_cache()
+        launches, reqs, paged_results = phase_serve(torch, cfg, params)
+        paged["launches"] = launches["paged_decode_attention"]
+        launches = phase_sync_serve(torch, cfg, params)
+        flash["launches"] = launches["flash_attention"]
+        decode["launches"] = launches["decode_attention"]
+        phase_engines(torch, cfg, params, reqs, paged_results)
         phase_profile(torch, cfg, params, serve_trace(cfg.vocab_size))
+        phase_sync_profile(torch, cfg, params)
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [paged, flash, decode]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

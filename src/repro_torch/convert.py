@@ -1,4 +1,5 @@
-"""Convert the reference's parameters to the port's layout.
+"""Convert the reference's parameters and decode caches to the port's
+layout.
 
 The input is the reference's parameter pytree with every leaf turned
 into a numpy array (``jax.tree.map(np.asarray, params)``); this module
@@ -7,8 +8,10 @@ keeps its first ``first_k_dense`` layers in a list ``layers0`` and the
 rest as a tuple of per-slot stacks ``layers``, each leaf with a leading
 ``n_periods`` axis (slot ``s`` of period ``p`` is global layer
 ``first_k + p * period + s``).  The port keeps one dict per layer, in
-global order.  bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are
-carried bit for bit.
+global order.  The reference's decode cache (``repro.models.init_cache``
+and ``prefill``) has the same ``layers0`` / stacked ``layers`` layout;
+the port's is a list with one ``{"k", "v"}`` dict per layer.  bfloat16
+leaves (numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["to_tensor", "convert_params"]
+__all__ = ["to_tensor", "convert_params", "convert_cache"]
 
 
 def to_tensor(a, device: Union[str, torch.device]) -> torch.Tensor:
@@ -47,16 +50,30 @@ def convert_params(np_params: Dict, *,
     out: Dict = {k: _tree(v, lambda a: to_tensor(a, dev))
                  for k, v in np_params.items()
                  if k not in ("layers0", "layers")}
+    out["layers"] = _unstack(np_params, dev)
+    return out
+
+
+def convert_cache(np_cache: Dict, *,
+                  device: Union[str, torch.device, None] = "cuda"
+                  ) -> List[Dict]:
+    """The port's per-layer decode cache from the reference's numpy one,
+    ``{"layers0": [...], "layers": (per-slot stacks,)}`` with leaves of
+    shape (n_periods, B, T, KV, hd) in the stacks."""
+    return _unstack(np_cache, resolve_device(device))
+
+
+def _unstack(tree: Dict, dev: torch.device) -> List[Dict]:
+    """``layers0`` then every period's slots, one dict per layer."""
     layers: List[Dict] = [_tree(w, lambda a: to_tensor(a, dev))
-                          for w in np_params.get("layers0", [])]
-    slots = list(np_params["layers"])
+                          for w in tree.get("layers0", [])]
+    slots = list(tree["layers"])
     if slots:
         n_periods = np.asarray(next(_leaves(slots[0]))).shape[0]
         for p in range(n_periods):
             for slot in slots:
                 layers.append(_tree(slot, lambda a: to_tensor(a[p], dev)))
-    out["layers"] = layers
-    return out
+    return layers
 
 
 def _leaves(x):

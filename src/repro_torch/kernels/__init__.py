@@ -1,20 +1,26 @@
 """The port's hand-written Hopper kernels, their plain PyTorch versions
 and oracles.
 
-Ported so far: ``paged_decode_attention`` (CUDA C++, ``csrc/``).  The
-reference's other Pallas kernels are still to port (ROADMAP queue 2).
+Ported so far (CUDA C++, ``csrc/``): ``flash_attention`` (prefill),
+``decode_attention`` (contiguous-cache decode) and
+``paged_decode_attention`` (paged decode).  The reference's other Pallas
+kernels are still to port (ROADMAP queue 2).
 """
 
 from typing import Dict
 
 from repro_torch.kernels.decode_attention import (  # noqa: F401
-    LAUNCHES as _PAGED_DECODE_LAUNCHES, paged_decode_attention,
-    paged_decode_attention_plain)
+    LAUNCHES as _DECODE_LAUNCHES, decode_attention, decode_attention_plain,
+    paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    LAUNCHES as _FLASH_LAUNCHES, flash_attention, flash_attention_plain)
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "flash_attention_plain", "decode_attention",
+           "decode_attention_plain", "paged_decode_attention",
+           "paged_decode_attention_plain", "launch_counts",
+           "reset_launch_counts"]
 
-_COUNTERS = (_PAGED_DECODE_LAUNCHES,)
+_COUNTERS = (_FLASH_LAUNCHES, _DECODE_LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,16 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface:
+``int <name>_launch(...)`` returns the launch's ``cudaError_t`` and
+``const char* <name>_error_string(int)`` names it.
 ``nvcc`` compiles it for ``sm_90a`` into a shared library under
 ``_build/`` (next to ``csrc/``, listed in ``.gitignore``) on first use,
 and ``ctypes`` loads it.  Nothing here runs at import: this module is
 imported on machines without ``nvcc``, where only the plain PyTorch
 versions of the kernels run.
 
-A library's file name carries a hash of its source and flags, so an
-edited source rebuilds and a stale library is never loaded.  Libraries
-are written under a temporary name and renamed into place, so processes
-that build at the same time never load a half-written file.
+A library's file name carries a hash of its source, of every header
+under ``csrc/`` that the source includes, and of the flags, so an
+edited source or header rebuilds and a stale library is never loaded.
+Libraries are written under a temporary name and renamed into place, so
+processes that build at the same time never load a half-written file.
 """
 
 from __future__ import annotations
@@ -18,13 +21,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc", "library_path",
-           "build", "load", "build_logs"]
+           "build", "load", "launch", "build_logs"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -32,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc() -> str:
@@ -47,11 +52,29 @@ def nvcc() -> str:
     return found
 
 
+def _sources(src: Path) -> List[Path]:
+    """``src`` and every ``csrc`` header it includes with ``#include "..."``,
+    directly or through another header, each once."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        if not path.is_file():
+            raise FileNotFoundError(f"kernel source {path} is missing")
+        found.append(path)
+        todo.extend(path.parent / inc for inc in
+                    _INCLUDE.findall(path.read_text()))
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    if not src.is_file():
-        raise FileNotFoundError(f"kernel source {src} is missing")
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library built from ``csrc/<name>.cu``; its name hashes the
+    source, the headers it includes and the compiler flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(CSRC / f"{name}.cu"):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -98,3 +121,21 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def launch(name: str, argtypes, *args) -> None:
+    """Call ``<name>_launch(*args)`` in kernel ``name``'s library (built
+    first if needed); raise ``RuntimeError`` with CUDA's message when the
+    launch returns an error (a refused launch never runs, and a later
+    synchronize would not report it)."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    err = fn(*args)
+    if err:
+        msg_fn = getattr(lib, f"{name}_error_string")
+        msg_fn.restype = ctypes.c_char_p
+        msg_fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{msg_fn(err).decode()} ({err})")

@@ -1,38 +1,48 @@
-"""Paged flash-decode: the wrapper around the CUDA kernel and its plain
-PyTorch version (twin of ``repro.kernels.decode_attention``'s
-``paged_decode_attention``).
+"""Flash-decode: the wrappers around the two CUDA decode kernels and their
+plain PyTorch versions (twin of ``repro.kernels.decode_attention``).
 
-The paged serve engine runs this once per layer on every decode tick:
-each request's pending token attends the first ``kv_len[b]`` rows of its
-cache, read from pool blocks ``block_tables[b, 0 .. ceil(kv_len/page))``.
+Each request's one new token attends the first ``kv_len[b]`` rows of its
+cache, its G = H / KV query heads of a group together:
 
-* On a CUDA tensor :func:`paged_decode_attention` launches the kernel in
-  ``csrc/paged_decode_attention.cu`` (built on first use) or raises.
-* On a CPU tensor it runs :func:`paged_decode_attention_plain`, the same
-  page loop written with PyTorch ops: same page order, same masks, same
-  f32 online softmax and the same roundings to V's dtype.  The CPU tests
-  hold it against the reference's Pallas kernel in interpret mode, and
-  ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+* :func:`decode_attention` reads a contiguous (B, T, KV, hd) cache; the
+  sync serve engine runs it once per layer on every decode step;
+* :func:`paged_decode_attention` reads pool blocks
+  ``block_tables[b, 0 .. ceil(kv_len/page))``; the paged serve engine
+  runs it once per layer on every decode tick.
 
-``LAUNCHES`` counts kernel launches (plain runs are not counted), so a
-run can show that its decode ticks went through the kernel.
+On a CUDA tensor each wrapper launches its kernel
+(``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``, which
+share their loop through ``csrc/attention_common.cuh``; built on first
+use) or raises.  On a CPU tensor it runs its plain version, the same tile
+loop written with PyTorch ops: same tile order, same masks, same f32
+online softmax and the same roundings to V's dtype.  The CPU tests hold
+the plain versions against the reference's Pallas kernels in interpret
+mode, and ``chip_smoke.py`` holds the CUDA kernels against them on the
+card.
+
+``LAUNCHES`` counts kernel launches by kernel name (plain runs are not
+counted), so a run can show that its decode steps went through the
+kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "LAUNCHES"]
+__all__ = ["decode_attention", "decode_attention_plain",
+           "paged_decode_attention", "paged_decode_attention_plain",
+           "LAUNCHES", "TILE"]
 
 NAME = "paged_decode_attention"
-LAUNCHES: Dict[str, int] = {NAME: 0}
+DECODE = "decode_attention"
+LAUNCHES: Dict[str, int] = {DECODE: 0, NAME: 0}
+TILE = 64             # cache rows per step of the contiguous kernel (kTile)
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -114,25 +124,18 @@ def _check(q, k_pool, v_pool, block_tables, kv_len) -> None:
 
 
 def _kernel(q, k_pool, v_pool, block_tables, kv_len) -> torch.Tensor:
-    lib = build.load(NAME)
-    fn = lib.paged_decode_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     B, H, hd = q.shape
     page, KV = k_pool.shape[1], k_pool.shape[2]
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                 B, H, KV, hd, page, block_tables.shape[1],
-                 1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], stream)
-    if err:
-        lib.paged_decode_attention_error_string.restype = ctypes.c_char_p
-        lib.paged_decode_attention_error_string.argtypes = [ctypes.c_int]
-        msg = lib.paged_decode_attention_error_string(err).decode()
-        raise RuntimeError(f"{NAME}: kernel launch failed: {msg} ({err})")
+        build.launch(NAME, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+                     q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                     block_tables.data_ptr(), kv_len.data_ptr(),
+                     out.data_ptr(), B, H, KV, hd, page,
+                     block_tables.shape[1], 1.0 / math.sqrt(hd),
+                     _DTYPE_CODES[q.dtype],
+                     torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES[NAME] += 1
     return out
 
@@ -155,3 +158,98 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q.device}")
     return _kernel(q, k_pool, v_pool, block_tables, kv_len)
+
+
+# -- the contiguous cache ---------------------------------------------------
+
+def _lens(kv_len, B: int, T: int, device) -> torch.Tensor:
+    """``kv_len`` (an int or a (B,) tensor) as (B,) int32, clamped to T."""
+    if isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1:
+        return kv_len.to(device=device, dtype=torch.int32).clamp(max=T)
+    return torch.full((B,), min(int(kv_len), T), dtype=torch.int32,
+                      device=device)
+
+
+def decode_attention_plain(q, k, v, kv_len, *,
+                           block_kv: int = TILE) -> torch.Tensor:
+    """The kernel's tile loop in PyTorch ops: request b's cache is walked
+    in tiles of ``block_kv`` rows, which is the paged loop over a pool
+    whose page is the tile and whose table lists b's tiles in order (the
+    cache's ragged tail is zero-padded to a whole tile and masked)."""
+    B, T, KV, hd = k.shape
+    nt = -(-T // block_kv)
+    pad = nt * block_kv - T
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    tables = torch.arange(B * nt, dtype=torch.int32,
+                          device=q.device).reshape(B, nt)
+    return paged_decode_attention_plain(
+        q, k.reshape(B * nt, block_kv, KV, hd),
+        v.reshape(B * nt, block_kv, KV, hd), tables,
+        _lens(kv_len, B, T, q.device))
+
+
+def _check_decode(q, k, v, kv_len) -> None:
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"{DECODE}: want q (B, H, hd) and k/v (B, T, KV, hd) of one "
+            f"shape, got q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}")
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or H % KV:
+        raise ValueError(f"{DECODE}: q {tuple(q.shape)} does not group over "
+                         f"k/v {tuple(k.shape)} (batch, head dim, H % KV)")
+    if hd % 32 or hd > _MAX_HD:
+        raise ValueError(f"{DECODE}: head dim {hd} must be a multiple of 32 "
+                         f"and at most {_MAX_HD}")
+    if min(B, k.shape[1]) < 1:
+        raise ValueError(f"{DECODE}: empty operand: B={B}, T={k.shape[1]}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"{DECODE}: q/k/v must share one of "
+                         f"{list(_DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if isinstance(kv_len, torch.Tensor) and kv_len.dim() > 0:
+        if kv_len.shape != (B,) or kv_len.dtype != torch.int32 \
+                or kv_len.device != q.device:
+            raise ValueError(
+                f"{DECODE}: kv_len must be an int or a ({B},) int32 tensor "
+                f"on {q.device}, got {tuple(kv_len.shape)} {kv_len.dtype} "
+                f"on {kv_len.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{DECODE}: all operands must be on {q.device}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError(f"{DECODE}: operands must be contiguous")
+
+
+def _decode_kernel(q, k, v, kv_len) -> torch.Tensor:
+    B, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    per_request = isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1
+    lens = kv_len.data_ptr() if per_request else None      # NULL: scalar
+    scalar = 0 if per_request else min(int(kv_len), T)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        build.launch(DECODE, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+                     q.data_ptr(), k.data_ptr(), v.data_ptr(), lens,
+                     out.data_ptr(), B, H, KV, hd, T, scalar,
+                     1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype],
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES[DECODE] += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: Union[int, torch.Tensor]) -> torch.Tensor:
+    """q (B, H, hd); k/v (B, T, KV, hd); ``kv_len`` an int, or a (B,)
+    int32 tensor of per-request lengths, counting the cache rows each
+    request attends (clamped to T).  Returns (B, H, hd) in q's dtype."""
+    _check_decode(q, k, v, kv_len)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"{DECODE}: no kernel for device {q.device}")
+    return _decode_kernel(q, k, v, kv_len)

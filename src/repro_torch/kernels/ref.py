@@ -11,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["decode_attention_ref", "paged_decode_attention_ref"]
+__all__ = ["flash_attention_ref", "decode_attention_ref",
+           "paged_decode_attention_ref"]
 
 
 def _grouped_full_attn(q, k, v, *, causal, kv_len=None):
@@ -34,6 +35,11 @@ def _grouped_full_attn(q, k, v, *, causal, kv_len=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkh->bskgh", p, v.float())
     return o.reshape(B, S, H, -1).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True):
+    """Full-softmax grouped attention (no blocking)."""
+    return _grouped_full_attn(q, k, v, causal=causal)
 
 
 def decode_attention_ref(q, k, v, kv_len):

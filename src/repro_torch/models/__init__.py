@@ -1,5 +1,8 @@
-"""Model layers and the paged serving steps (twin of ``repro.models``)."""
+"""Model layers, the sync serving steps and the paged serving steps
+(twin of ``repro.models``)."""
 
 from repro_torch.models.config import ModelConfig  # noqa: F401
-from repro_torch.models.model import (init_params,  # noqa: F401
-                                      paged_decode_step, paged_prefill_step)
+from repro_torch.models.model import (decode_step, forward,  # noqa: F401
+                                      init_cache, init_params,
+                                      paged_decode_step, paged_prefill_step,
+                                      prefill)

@@ -1,39 +1,56 @@
-"""GQA self-attention over the block-paged KV pool
-(twin of the GQA half of ``repro.models.attention``).
+"""GQA self-attention (twin of the GQA half of ``repro.models.attention``).
 
-Ported: ``init_attn``, ``_qkv``, ``sdpa`` and the two paged layer steps
-the serve engine runs, :func:`attn_decode_paged` (one token per request)
-and :func:`attn_prefill_paged` (one prompt chunk).  MLA, cross-attention
-and the contiguous-cache steps are later slices (ROADMAP queue 1).
+Ported: ``init_attn``, ``_qkv``, the attention math (:func:`sdpa`,
+:func:`_flash_sdpa`, :func:`_causal_split_flash` and the
+:func:`attention` entry point with its kernel dispatch), the
+contiguous-cache layer steps the sync serve engine runs
+(:func:`attn_train`, :func:`init_attn_cache`, :func:`attn_decode`), and
+the two paged layer steps the paged engine runs,
+:func:`attn_decode_paged` (one token per request) and
+:func:`attn_prefill_paged` (one prompt chunk).  MLA and cross-attention
+are later slices (ROADMAP queue 1).
 
-Pool writes happen in place: the pools are ``(P, page, KV, hd)`` views
-into the engine's per-layer pool tensors, and the new K/V rows are
-index-written into them.  The reference returns updated pools and its
-engine donates the old ones so XLA can reuse their buffers; the result
-is the same.
+Caches are written in place: :func:`attn_decode` writes the new row into
+the (B, max_len, KV, hd) cache tensors it is given, and the paged steps
+index-write their rows into the ``(P, page, KV, hd)`` pools.  The
+reference returns updated caches and its engines donate the old ones so
+XLA can reuse their buffers; the result is the same.
 
-With ``cfg.use_kernels`` the decode step calls
-:func:`repro_torch.kernels.paged_decode_attention` (the CUDA kernel on
-CUDA tensors, its plain version on CPU tensors); otherwise it gathers
-each request's pages into a dense cache and runs :func:`sdpa`, the
-reference's ``use_pallas=False`` path.  Paged prefill always gathers and
-runs :func:`sdpa` (matmul plus f32 softmax), as the reference does.
+With ``cfg.use_kernels`` :func:`attention` calls the port's kernels
+(the CUDA kernel on CUDA tensors, its plain version on CPU tensors):
+:func:`repro_torch.kernels.flash_attention` when S > 1 and
+:func:`repro_torch.kernels.decode_attention` for the single-token step.
+There is no fallback: what the kernels cannot take (a value head dim
+other than the query's, as in MLA, or a softmax scale other than
+1/sqrt(hd)) raises ``NotImplementedError``.  Otherwise it runs the
+reference's ``use_pallas=False`` path: :func:`sdpa` below 2048 keys, the
+blockwise :func:`_flash_sdpa` from 2048 keys on (S > 1).  The paged
+decode step calls :func:`repro_torch.kernels.paged_decode_attention`
+with ``cfg.use_kernels``, else gathers each request's pages into a dense
+cache and runs :func:`sdpa`; paged prefill always gathers and runs
+:func:`sdpa`, as the reference does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import paged_decode_attention
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 paged_decode_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype, dense, mm, rope
 
-__all__ = ["init_attn", "sdpa", "attn_decode_paged", "attn_prefill_paged"]
+__all__ = ["init_attn", "attn_train", "attn_decode", "attn_decode_paged",
+           "attn_prefill_paged", "init_attn_cache", "sdpa", "attention"]
 
+_FLASH_BLOCK = 512
+_FLASH_MIN_T = 2048     # plain sdpa below this KV length
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
+# the slice of ROADMAP queue 1 that ports what the kernels cannot take
+_MLA_SLICE = "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)"
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -63,6 +80,130 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = mm(probs, v.transpose(1, 2), out_dtype=q.dtype)           # (B,H,S,hd)
     return out.transpose(1, 2)
+
+
+def _kv_len_bc(kv_len, device) -> torch.Tensor:
+    """``kv_len`` for (B, H, S, T) logits masks: a scalar broadcasts as
+    is; a per-request (B,) vector gains (1, 1, 1) tails."""
+    kl = torch.as_tensor(kv_len, device=device)
+    return kl[:, None, None, None] if kl.dim() == 1 else kl
+
+
+def _flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, scale: float, kv_len=None, q_offset: int = 0,
+                block: int = _FLASH_BLOCK) -> torch.Tensor:
+    """Blockwise online-softmax attention over KV blocks of ``block``
+    rows, the reference's long-sequence path: f32 scores, running max,
+    denominator and accumulator.  k/v may carry KV < H heads; they are
+    expanded per block.  ``q_offset`` is the global row of q's first
+    position for the causal mask."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    if T % block:
+        pad = block - T % block
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_len = T if kv_len is None else kv_len
+        T = T + pad
+    if kv_len is not None:
+        kv_len = _kv_len_bc(kv_len, dev)
+    qf = q.float() * scale
+    hd_v = v.shape[-1]
+    m = torch.full((B, H, S), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, S, hd_v), dtype=torch.float32, device=dev)
+    row = torch.arange(S, device=dev)[None, None, :, None] + q_offset
+    for ib in range(T // block):
+        kb = k[:, ib * block:(ib + 1) * block]
+        vb = v[:, ib * block:(ib + 1) * block]
+        if G > 1:
+            kb = kb.repeat_interleave(G, dim=2)
+            vb = vb.repeat_interleave(G, dim=2)
+        s = torch.einsum("bshd,bthd->bhst", qf, kb.float())
+        col = torch.arange(block, device=dev)[None, None, None, :] \
+            + ib * block
+        if causal and S > 1:
+            s = torch.where(col <= row, s, _NEG_INF)
+        if kv_len is not None:
+            s = torch.where(col < kv_len, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhst,bthd->bhsd", p,
+                                                   vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _attention_kernel(q, k, v, *, causal: bool, scale: float,
+                      kv_len) -> torch.Tensor:
+    """The kernel path: ``flash_attention`` for S > 1 (train/prefill),
+    ``decode_attention`` for the S == 1 cache step.  What the kernels
+    cannot take raises instead of falling back."""
+    B, S, H, hd = q.shape
+    kernel = "flash_attention" if S > 1 else "decode_attention"
+    if v.shape[-1] != hd:
+        raise NotImplementedError(
+            f"{kernel}: value head dim {v.shape[-1]} != query head dim {hd} "
+            f"(MLA-style asymmetric heads) has no kernel yet: {_MLA_SLICE}")
+    if abs(scale * math.sqrt(hd) - 1.0) > 1e-6:
+        raise NotImplementedError(
+            f"{kernel}: softmax scale {scale:g} != 1/sqrt(hd) has no kernel "
+            f"yet: {_MLA_SLICE}")
+    if S > 1:
+        return flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    kl = k.shape[1] if kv_len is None else kv_len
+    return decode_attention(q[:, 0], k, v, kl)[:, None]
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, scale: Optional[float] = None, kv_len=None,
+              use_kernels: bool = False) -> torch.Tensor:
+    """Grouped attention entry point.  q: (B,S,H,hd); k/v: (B,T,KV,hd).
+
+    With ``use_kernels`` the port's kernels run (see the module
+    docstring).  Otherwise the reference's plain path: the blockwise
+    :func:`_flash_sdpa` for T >= 2048 and S > 1 (triangle-split when a
+    causal self-attention is long enough), plain :func:`sdpa` over KV
+    heads repeated to H otherwise."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if use_kernels:
+        return _attention_kernel(q, k, v, causal=causal, scale=scale,
+                                 kv_len=kv_len)
+    use_flash = T >= _FLASH_MIN_T and S > 1
+    if use_flash:
+        if causal and S == T and kv_len is None and S >= 2 * _FLASH_MIN_T:
+            return _causal_split_flash(q, k, v, scale=scale, depth=2)
+        return _flash_sdpa(q, k, v, causal=causal, scale=scale,
+                           kv_len=kv_len)
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    return sdpa(q, k, v, causal=causal, scale=scale, kv_len=kv_len)
+
+
+def _causal_split_flash(q, k, v, *, scale: float, depth: int,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Causal triangle splitting: the low half of q attends only the low
+    half of K/V, the high half all of it, which skips the fully masked
+    blocks a uniform scan would run."""
+    S = q.shape[1]
+    if depth == 0 or S < 2 * _FLASH_MIN_T or S % 2:
+        return _flash_sdpa(q, k, v, causal=True, scale=scale,
+                           q_offset=q_offset)
+    h = S // 2
+    lo = _causal_split_flash(q[:, :h], k[:, :h], v[:, :h], scale=scale,
+                             depth=depth - 1, q_offset=q_offset)
+    hi = _flash_sdpa(q[:, h:], k, v, causal=True, scale=scale,
+                     q_offset=q_offset + h)
+    return torch.cat([lo, hi], dim=1)
 
 
 def init_attn(cfg: ModelConfig, gen: torch.Generator,
@@ -95,6 +236,42 @@ def _qkv(cfg: ModelConfig, w, x, positions):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attn_train(cfg: ModelConfig, w, x: torch.Tensor,
+               positions: torch.Tensor, *, causal: bool = True
+               ) -> torch.Tensor:
+    """Full-sequence self-attention: x (B, S, D) at ``positions``."""
+    B, S, D = x.shape
+    q, k, v = _qkv(cfg, w, x, positions)
+    out = attention(q, k, v, causal=causal, use_kernels=cfg.use_kernels)
+    return dense(out.reshape(B, S, cfg.n_heads * cfg.hd), w["wo"])
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                    device: Union[str, torch.device]) -> Dict:
+    """Zeroed (batch, max_len, KV, hd) K and V caches in ``cfg.dtype``."""
+    shp = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shp, dtype=cdtype(cfg), device=device),
+            "v": torch.zeros(shp, dtype=cdtype(cfg), device=device)}
+
+
+def attn_decode(cfg: ModelConfig, w, x: torch.Tensor, cache: Dict,
+                pos: int) -> Tuple[torch.Tensor, Dict]:
+    """One decode step: x (B, 1, D) is every request's new token at
+    position ``pos`` (an int, the number of rows already cached).  Its
+    K/V row is written into ``cache`` in place; attention then reads rows
+    [0, pos + 1)."""
+    B, S, D = x.shape
+    pos = int(pos)
+    positions = torch.full((S,), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(cfg, w, x, positions)
+    cache["k"][:, pos:pos + S] = k_new
+    cache["v"][:, pos:pos + S] = v_new
+    out = attention(q, cache["k"], cache["v"], causal=False, kv_len=pos + 1,
+                    use_kernels=cfg.use_kernels)
+    y = dense(out.reshape(B, S, cfg.n_heads * cfg.hd), w["wo"])
+    return y, cache
 
 
 def _gather_heads(cfg: ModelConfig, pool: torch.Tensor,

@@ -4,14 +4,16 @@
 A layer signature ``(mixer, is_moe)`` classifies every layer, as in the
 reference.  Every block is pre-norm with residuals:
 ``h += mixer(norm(h)); h += ffn(norm(h))``.  Only plain GQA attention
-with a dense MLP is ported; other layer kinds raise
+with a dense MLP is ported, in the reference's three modes
+(:func:`apply_layer`: train, prefill, decode against a contiguous cache)
+and the two paged steps; other layer kinds raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -20,7 +22,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype, mlp_apply, norm_apply
 
 __all__ = ["Sig", "layer_sigs", "schedule", "init_norm", "init_mlp",
-           "init_layer", "apply_layer_paged", "apply_layer_prefill_paged"]
+           "init_layer", "init_layer_cache", "apply_layer",
+           "apply_layer_paged", "apply_layer_prefill_paged"]
 
 Sig = Tuple[str, bool]
 
@@ -108,10 +111,68 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, sig: Sig,
     return w
 
 
+def init_layer_cache(cfg: ModelConfig, sig: Sig, batch: int, max_len: int,
+                     *, device: Union[str, torch.device]) -> Dict:
+    """Zeroed decode cache of one layer: (batch, max_len, KV, hd) K/V."""
+    check_ported(cfg, sig)
+    return attn.init_attn_cache(cfg, batch, max_len, device=device)
+
+
+def _pad_cache(x: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Right-pad a (B, S, ...) prefill tensor with zeros to cache length."""
+    if x.shape[1] > max_len:
+        raise ValueError(f"prefill of {x.shape[1]} rows does not fit a cache "
+                         f"of max_len {max_len}")
+    out = x.new_zeros((x.shape[0], max_len) + tuple(x.shape[2:]))
+    out[:, :x.shape[1]] = x
+    return out
+
+
+def _attn_prefill_cache(cfg: ModelConfig, w, x: torch.Tensor,
+                        positions: torch.Tensor, max_len: int) -> Dict:
+    """Recompute the prompt's K/V (as the reference does: cheap next to
+    attention itself) and pad them to cache length."""
+    _, k, v = attn._qkv(cfg, w, x, positions)
+    return {"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len)}
+
+
 def _ffn(cfg: ModelConfig, w, h: torch.Tensor) -> torch.Tensor:
     if "ffn" not in w:
         return h
     return h + mlp_apply(cfg, w["ffn"], norm_apply(cfg, w["ln2"], h))
+
+
+def apply_layer(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor, *,
+                mode: str, positions: Optional[torch.Tensor] = None,
+                cache: Optional[Dict] = None, pos: Optional[int] = None,
+                max_len: int = 0):
+    """One layer in the reference's modes:
+
+    * ``"train"``: returns (h, aux);
+    * ``"prefill"``: returns (h, aux, cache), the cache padded to
+      ``max_len``;
+    * ``"decode"``: returns (h, cache), h (B, 1, D); the new row is
+      written into ``cache`` in place at ``pos``.
+
+    ``aux`` (the MoE balance loss in the reference) is a zero f32 scalar
+    for the dense layers ported here."""
+    check_ported(cfg, sig)
+    x = norm_apply(cfg, w["ln1"], h)
+    new_cache: Dict = {}
+    if mode == "decode":
+        y, new_cache = attn.attn_decode(cfg, w["mixer"], x, cache, pos)
+    elif mode in ("train", "prefill"):
+        y = attn.attn_train(cfg, w["mixer"], x, positions)
+        if mode == "prefill":
+            new_cache = _attn_prefill_cache(cfg, w["mixer"], x, positions,
+                                            max_len)
+    else:
+        raise ValueError(f"apply_layer: unknown mode {mode!r}")
+    h = _ffn(cfg, w, h + y)
+    if mode == "decode":
+        return h, new_cache
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return (h, aux) if mode == "train" else (h, aux, new_cache)
 
 
 def apply_layer_paged(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor,

@@ -1,5 +1,4 @@
-"""Top-level LM assembly for paged serving (twin of the serving half of
-``repro.models.model``).
+"""Top-level LM assembly (twin of ``repro.models.model``, dense subset).
 
 Parameters are a plain dict: ``embed`` (V, D), ``final_norm``,
 ``unembed`` (D, V) unless embeddings are tied, and ``layers``, a list
@@ -7,27 +6,38 @@ with one weight dict per layer in global order.  The reference scans
 over stacked per-period weights; here the scan is a Python loop over
 that list (:mod:`repro_torch.convert` unstacks the reference's layout).
 
-The KV pools are ``{"k", "v"}`` tensors of shape (L, P, page, KV, hd),
-one (P, page, KV, hd) pool per layer, written in place by the steps
-below (build them with :class:`repro_torch.serve.PagedKVCache`).
+Two cache layouts, both written in place by the steps below:
+
+* the contiguous decode cache of the sync serve engine, a list with one
+  ``{"k", "v"}`` dict of (B, max_len, KV, hd) tensors per layer
+  (:func:`init_cache`, :func:`prefill`, :func:`decode_step`);
+* the paged pools, ``{"k", "v"}`` tensors of shape (L, P, page, KV, hd),
+  one (P, page, KV, hd) pool per layer (:func:`paged_decode_step`,
+  :func:`paged_prefill_step`; build them with
+  :class:`repro_torch.serve.PagedKVCache`).
+
+:func:`forward` runs the ``train`` and ``prefill`` modes; the loss and
+the backward pass are the training slice (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import (apply_layer_paged,
+from repro_torch.models.blocks import (apply_layer, apply_layer_paged,
                                        apply_layer_prefill_paged, init_layer,
-                                       init_norm, layer_sigs)
+                                       init_layer_cache, init_norm,
+                                       layer_sigs)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cdtype, embed_apply, norm_apply,
                                        unembed_apply)
 
-__all__ = ["init_params", "paged_decode_step", "paged_prefill_step"]
+__all__ = ["init_params", "forward", "init_cache", "decode_step", "prefill",
+           "paged_decode_step", "paged_prefill_step"]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -54,18 +64,96 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     return p
 
 
-def _embed_in(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_in(cfg: ModelConfig, params, tokens: torch.Tensor,
+              pos0: Optional[int] = None) -> torch.Tensor:
+    """Token embeddings, plus learned position embeddings from ``pos0``
+    (default 0) when the config has them."""
+    h = embed_apply(cfg, params["embed"], tokens)
+    if cfg.pos_embed == "learned":
+        S = tokens.shape[1]
+        start = 0 if pos0 is None else int(pos0)
+        h = h + params["pos_embed"][None, start:start + S]
+    return h
+
+
+def _paged_embed_in(cfg: ModelConfig, params,
+                    tokens: torch.Tensor) -> torch.Tensor:
     if cfg.pos_embed != "rope":
         raise NotImplementedError(
             f"paged serving needs per-request rope positions "
             f"(cfg.pos_embed={cfg.pos_embed!r})")
-    return embed_apply(cfg, params["embed"], tokens)
+    return _embed_in(cfg, params, tokens)
 
 
 def _logits_out(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
     h = norm_apply(cfg, params["final_norm"], h)
     w_un = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return unembed_apply(cfg, w_un, h)
+
+
+def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
+            max_len: int = 0, last_pos: Optional[int] = None):
+    """``batch["tokens"]`` (B, S) int.  Returns (logits, aux) in mode
+    ``"train"``, logits (B, S, V) f32; (logits, aux, cache) in mode
+    ``"prefill"``, logits (B, 1, V) f32 at the last position or at
+    ``last_pos`` (the true last token of right-padded prompts), the cache
+    padded to ``max_len``.
+    ``aux`` is a zero f32 scalar (no MoE layers are ported)."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward: mode must be 'train' or 'prefill', got "
+                         f"{mode!r}")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    h = _embed_in(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    cache: List[Dict] = []
+    for sig, w in zip(layer_sigs(cfg), params["layers"]):
+        out = apply_layer(cfg, sig, w, h, mode=mode, positions=positions,
+                          max_len=max_len)
+        h, a = out[0], out[1]
+        aux = aux + a
+        if mode == "prefill":
+            cache.append(out[2])
+    if mode == "train":
+        return _logits_out(cfg, params, h), aux
+    # only the last position's logits are needed: slice before the unembed
+    lp = S - 1 if last_pos is None else int(last_pos)
+    return _logits_out(cfg, params, h[:, lp:lp + 1]), aux, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: Union[str, torch.device, None] = "cuda"
+               ) -> List[Dict]:
+    """Zeroed contiguous decode cache: one ``{"k", "v"}`` dict of
+    (batch, max_len, KV, hd) tensors per layer."""
+    dev = resolve_device(device)
+    return [init_layer_cache(cfg, sig, batch, max_len, device=dev)
+            for sig in layer_sigs(cfg)]
+
+
+def decode_step(cfg: ModelConfig, params, cache: List[Dict],
+                tokens: torch.Tensor, pos: int
+                ) -> Tuple[torch.Tensor, List[Dict]]:
+    """One decode step.  tokens (B, 1) int; ``pos`` (an int) is the write
+    index, the number of tokens already in the cache.  Writes each
+    layer's new K/V row into ``cache`` in place and returns the (B, 1, V)
+    f32 logits and the cache."""
+    h = _embed_in(cfg, params, tokens, pos0=pos)
+    for sig, w, c in zip(layer_sigs(cfg), params["layers"], cache):
+        h, _ = apply_layer(cfg, sig, w, h, mode="decode", cache=c, pos=pos)
+    return _logits_out(cfg, params, h), cache
+
+
+def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int,
+            last_pos: Optional[int] = None
+            ) -> Tuple[torch.Tensor, List[Dict]]:
+    """Process a prompt: returns the (B, 1, V) f32 logits of its last
+    position (or ``last_pos``, see :func:`forward`) and the filled cache,
+    padded to ``max_len``."""
+    logits, _, cache = forward(cfg, params, batch, mode="prefill",
+                               max_len=max_len, last_pos=last_pos)
+    return logits[:, -1:], cache
 
 
 def _layer_cache(pools: Dict, i: int) -> Dict:
@@ -82,7 +170,7 @@ def paged_decode_step(cfg: ModelConfig, params, pools: Dict,
     lens (B,) int32 per-request cache lengths (write index and RoPE
     position).  Writes each layer's new K/V row into ``pools`` in place
     and returns the (B, 1, V) f32 logits."""
-    h = _embed_in(cfg, params, tokens)
+    h = _paged_embed_in(cfg, params, tokens)
     for i, (sig, w) in enumerate(zip(layer_sigs(cfg), params["layers"])):
         h, _ = apply_layer_paged(cfg, sig, w, h, _layer_cache(pools, i),
                                  block_tables, lens)
@@ -102,7 +190,7 @@ def paged_prefill_step(cfg: ModelConfig, params, pools: Dict,
     (B, 1, V) f32 logits at each request's last valid row (meaningful on
     the prompt's final chunk).  ``aligned`` forwards the single-block
     write promise to the attention layers."""
-    h = _embed_in(cfg, params, tokens)
+    h = _paged_embed_in(cfg, params, tokens)
     for i, (sig, w) in enumerate(zip(layer_sigs(cfg), params["layers"])):
         h, _ = apply_layer_prefill_paged(cfg, sig, w, h,
                                          _layer_cache(pools, i),

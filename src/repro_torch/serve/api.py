@@ -5,7 +5,9 @@
 * :class:`RequestResult` — per-request outcome: generated tokens plus
   the scheduling record and terminal status;
 * :class:`RunStats` — the run-level accounting; indexable by name
-  (``stats["tokens"]``) like the reference's.
+  (``stats["tokens"]``) like the reference's;
+* :func:`sample` — the engines' token choice: greedy, or temperature
+  sampling from a ``torch.Generator``.
 
 The reference still coerces legacy ``(prompt, n_steps[, arrival])``
 tuples with a deprecation warning; the port takes :class:`Request`
@@ -18,8 +20,9 @@ import dataclasses
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["Request", "RequestResult", "RunStats", "as_requests"]
+__all__ = ["Request", "RequestResult", "RunStats", "as_requests", "sample"]
 
 
 @dataclasses.dataclass
@@ -53,13 +56,16 @@ class RequestResult:
 
 @dataclasses.dataclass
 class RunStats:
-    """Run-level accounting of one ``run(trace)``."""
+    """Run-level accounting of one ``run(trace)``.  Fields an engine has
+    no notion of stay 0 (the sync engine has no pool or scheduler clock;
+    it reports ``batches`` instead)."""
 
     requests: int = 0
     tokens: int = 0                 # requested tokens actually emitted
     ticks: int = 0
     decode_steps: int = 0
     prefill_chunks: int = 0
+    batches: int = 0                # sync bucket replay only
     prefix_blocks_reused: int = 0
     prefix_blocks_needed: int = 0
     prefix_hit_rate: float = 0.0
@@ -98,3 +104,14 @@ def as_requests(trace: Sequence[Request]) -> List[Request]:
             raise ValueError(f"request {i}: n_steps={r.n_steps} < 1")
         reqs.append(r)
     return reqs
+
+
+def sample(logits: torch.Tensor, temperature: float,
+           gen: torch.Generator) -> torch.Tensor:
+    """(B, V) or (V,) logits -> tokens, on the logits' device: the argmax
+    when ``temperature <= 0``, else a draw from softmax(logits / T)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                             generator=gen).reshape(probs.shape[:-1])

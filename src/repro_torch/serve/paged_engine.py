@@ -43,7 +43,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import paged_decode_step, paged_prefill_step
-from repro_torch.serve.api import Request, RequestResult, RunStats, as_requests
+from repro_torch.serve.api import (Request, RequestResult, RunStats,
+                                   as_requests, sample)
 from repro_torch.serve.paged_cache import (PagedKVCache, default_page_size,
                                            validate_page)
 from repro_torch.serve.resilience import (CANCELLED, OK, PREEMPTED, SHED,
@@ -143,15 +144,29 @@ class PagedServeEngine:
     def _prompt_blocks(self, s: int) -> int:
         return max(1, math.ceil(s / self.page))
 
-    @staticmethod
-    def _sample(logits: torch.Tensor, temperature: float,
-                gen: torch.Generator) -> torch.Tensor:
-        """(B, V) or (V,) logits -> tokens, on the device."""
-        if temperature <= 0.0:
-            return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits.float() / temperature, dim=-1)
-        return torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
-                                 generator=gen).reshape(probs.shape[:-1])
+    def teacher_forced_logits(self, prompt: np.ndarray,
+                              tokens: Sequence[int]) -> List[torch.Tensor]:
+        """The (V,) logits behind each token of a stream: the prompt
+        prefilled in this engine's chunks, then ``tokens`` fed back one
+        decode step at a time, on a one-slot engine sharing this one's
+        config, weights, page and chunk size (and not its pool)."""
+        solo = PagedServeEngine(self.cfg, self.params, max_len=self.max_len,
+                                max_batch=1, page=self.page,
+                                prefill_chunk=self.prefill_chunk,
+                                device=self.device)
+        table = np.arange(1, solo.nb_table + 1, dtype=np.int32)[None]
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        s, C = prompt.shape[0], solo.prefill_chunk
+        for pos in range(0, s, C):
+            nv = min(C, s - pos)
+            toks = np.zeros((1, C), np.int32)
+            toks[0, :nv] = prompt[pos:pos + nv]
+            logits = solo.prefill(toks, table, pos, nv)
+        out = [logits]
+        for t, tok in enumerate(list(tokens)[:-1]):
+            out.append(solo.decode(np.array([tok], np.int32), table,
+                                   np.array([s + t], np.int32))[0])
+        return out
 
     # -- the scheduler -----------------------------------------------------
 
@@ -421,7 +436,7 @@ class PagedServeEngine:
                             r.prompt[:full * self.page], slot.ids[:full])
                         slot.registered = full
                 if slot.filled == s:                # prefill done -> ACTIVE
-                    tok = int(self._sample(logits, temperature, gen))
+                    tok = int(sample(logits, temperature, gen))
                     lens[si] = s
                     pend[si] = tok
                     emit(slot.req, tok)
@@ -469,7 +484,7 @@ class PagedServeEngine:
                 logits = self.decode(pend, dec_tables, lens)
                 # the tick's one device-to-host transfer (it also waits
                 # for the tick's pool writes)
-                toks = self._sample(logits, temperature, gen).cpu().numpy()
+                toks = sample(logits, temperature, gen).cpu().numpy()
                 decode_steps += 1
                 lens[active] += 1
                 for si in active:

@@ -5,23 +5,33 @@ differently, so a greedy stream may flip where the two best logits are
 nearly equal, and everything after the flip differs.  The rule the CPU
 tests and ``chip_smoke.py`` hold: the first step at which two streams
 differ must be one where the reference path's top-2 logit margin is
-below ``NEAR_TIE``.  The margin is recomputed by teacher forcing, through
-the reference engine's own prefill and decode steps on a private pool.
+below ``NEAR_TIE``.  The margin is recomputed by teacher forcing through
+the reference engine's own steps: any engine of the port serves, as long
+as it has ``teacher_forced_logits(prompt, tokens)`` (the sync
+:class:`~repro_torch.serve.ServeEngine` and the paged
+:class:`~repro_torch.serve.PagedServeEngine` both do).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Protocol, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.serve.api import Request, RequestResult
-from repro_torch.serve.paged_engine import PagedServeEngine
 
-__all__ = ["NEAR_TIE", "teacher_forced_margins", "divergences"]
+__all__ = ["NEAR_TIE", "TeacherForcing", "teacher_forced_margins",
+           "divergences"]
 
 NEAR_TIE = 0.05
+
+
+class TeacherForcing(Protocol):
+    def teacher_forced_logits(self, prompt: np.ndarray,
+                              tokens: Sequence[int]) -> List[torch.Tensor]:
+        """The (V,) logits behind each of ``tokens``: the prompt's, then
+        those of each token fed back in turn."""
 
 
 def _margin(logits: torch.Tensor) -> float:
@@ -29,34 +39,14 @@ def _margin(logits: torch.Tensor) -> float:
     return float(top[0] - top[1])
 
 
-def teacher_forced_margins(engine: PagedServeEngine, prompt: np.ndarray,
+def teacher_forced_margins(engine: TeacherForcing, prompt: np.ndarray,
                            tokens: Sequence[int]) -> np.ndarray:
-    """Top-2 logit margin behind each token of a greedy stream: the
-    prompt prefilled in the engine's chunks, then ``tokens`` fed back one
-    decode step at a time, on a one-slot engine sharing ``engine``'s
-    config, weights, page and chunk size."""
-    solo = PagedServeEngine(engine.cfg, engine.params,
-                            max_len=engine.max_len, max_batch=1,
-                            page=engine.page,
-                            prefill_chunk=engine.prefill_chunk,
-                            device=engine.device)
-    table = np.arange(1, solo.nb_table + 1, dtype=np.int32)[None]
-    prompt = np.asarray(prompt, np.int32).reshape(-1)
-    s, C = prompt.shape[0], solo.prefill_chunk
-    for pos in range(0, s, C):
-        nv = min(C, s - pos)
-        toks = np.zeros((1, C), np.int32)
-        toks[0, :nv] = prompt[pos:pos + nv]
-        logits = solo.prefill(toks, table, pos, nv)
-    margins = [_margin(logits)]
-    for t, tok in enumerate(list(tokens)[:-1]):
-        logits = solo.decode(np.array([tok], np.int32), table,
-                             np.array([s + t], np.int32))[0]
-        margins.append(_margin(logits))
-    return np.asarray(margins)
+    """Top-2 logit margin behind each token of a greedy stream."""
+    return np.asarray([_margin(l) for l in
+                       engine.teacher_forced_logits(prompt, tokens)])
 
 
-def divergences(reference: PagedServeEngine, requests: Sequence[Request],
+def divergences(reference: TeacherForcing, requests: Sequence[Request],
                 ref_results: Sequence[RequestResult],
                 got_results: Sequence[RequestResult]) -> List[Dict]:
     """One record per request whose greedy stream differs from the

@@ -1,14 +1,18 @@
-"""The CUDA kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch versions,
+and both serve engines on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU (the
-kernel has no CPU mode).  This file imports neither jax nor the
+kernels have no CPU mode).  This file imports neither jax nor the
 reference, so it runs on a GPU machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerance: bfloat16 atol 1e-2 (about one bf16 ulp at the outputs'
-magnitude; the kernel and the plain version round at the same points
-but sum in different orders), float32 atol 1e-5.
+magnitude; a kernel and its plain version round at the same points but
+sum in different orders), plus rtol 2**-7 (one bf16 ulp at any
+magnitude) for the flash and contiguous decode kernels, whose outputs
+reach |x| >= 2 where an ulp is 2**-6; float32 atol 1e-5 (1e-4 for flash
+attention, whose sums run over up to 300 keys).
 """
 
 import dataclasses
@@ -19,13 +23,17 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import (launch_counts, paged_decode_attention,
-                                 paged_decode_attention_plain)
+from repro_torch.kernels import (decode_attention, decode_attention_plain,
+                                 flash_attention, flash_attention_plain,
+                                 launch_counts, paged_decode_attention,
+                                 paged_decode_attention_plain,
+                                 reset_launch_counts)
 from repro_torch.models import init_params
-from repro_torch.serve import OK, PagedServeEngine, get_trace
+from repro_torch.serve import OK, PagedServeEngine, ServeEngine, get_trace
 from repro_torch.serve.parity import divergences
 
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
 
 
 @pytest.fixture
@@ -91,3 +99,91 @@ def test_engine_kernel_path_matches_plain_path(cuda):
     assert [r.status for r in k_res] == [OK] * len(reqs)
     assert k_stats.ticks == p_stats.ticks
     assert all(d["near_tie"] for d in divergences(plain, reqs, p_res, k_res))
+
+
+def _randn(g, *shape):
+    return torch.randn(shape, generator=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd,S,T,causal,kv_len", [
+    (1, 32, 64, 64, True, None),
+    (2, 64, 200, 200, True, None),
+    (7, 128, 130, 130, True, 100),
+    (7, 128, 70, 300, False, 257),
+    (2, 32, 1, 65, False, None),
+])
+def test_flash_kernel_matches_plain(cuda, G, hd, S, T, causal, kv_len,
+                                    dtype):
+    g = torch.Generator().manual_seed(G * hd + S)
+    B, KV = 2, 4
+    q, k, v = (_randn(g, B, S, G * KV, hd), _randn(g, B, T, KV, hd),
+               _randn(g, B, T, KV, hd))
+    n = T if kv_len is None else kv_len
+    k[:, n:], v[:, n:] = float("nan"), float("inf")   # never read
+    q, k, v = (t.to(dtype).cuda() for t in (q, k, v))
+    before = launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    assert torch.isfinite(got).all()
+    atol = 1e-4 if dtype == torch.float32 else ATOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=RTOL[dtype],
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd,T,per_request", [
+    (1, 32, 64, True), (2, 64, 200, False), (7, 128, 300, True),
+    (8, 256, 130, True),
+])
+def test_decode_kernel_matches_plain(cuda, G, hd, T, per_request, dtype):
+    g = torch.Generator().manual_seed(G * hd + T)
+    B, KV = 5, 4
+    q = _randn(g, B, G * KV, hd)
+    k, v = _randn(g, B, T, KV, hd), _randn(g, B, T, KV, hd)
+    lens = [T, 1, 64, 65, T - 7][:B]
+    for b, n in enumerate(lens if per_request else [T - 9] * B):
+        k[b, n:], v[b, n:] = float("nan"), float("inf")  # never read
+    q, k, v = (t.to(dtype).cuda() for t in (q, k, v))
+    kv_len = torch.tensor(lens, dtype=torch.int32).cuda() if per_request \
+        else T - 9
+    before = launch_counts()["decode_attention"]
+    got = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention"] == before + 1
+    want = decode_attention_plain(q, k, v, kv_len)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=RTOL[dtype],
+                               atol=ATOL[dtype])
+
+
+@pytest.mark.cuda
+def test_sync_engine_kernel_path_matches_plain_path(cuda):
+    """The reduced qwen2-7b served by the sync engine on the card: one
+    flash launch per layer per prefill, one decode launch per layer per
+    decode step, and greedy streams equal to the plain path's up to
+    near-ties; the paged engine agrees with it up to near-ties too."""
+    cfg = get_config("qwen2-7b").reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    reqs = get_trace("base")(5, cfg.vocab_size, seed=1)
+    kernel = ServeEngine(cfg, params, max_len=128)
+    plain = ServeEngine(dataclasses.replace(cfg, use_kernels=False), params,
+                        max_len=128)
+    reset_launch_counts()
+    k_res, k_stats = kernel.run(reqs)
+    counts = launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers * len(reqs)
+    assert counts["decode_attention"] == cfg.n_layers * k_stats.decode_steps
+    p_res, _ = plain.run(reqs)
+    assert all(d["near_tie"] for d in divergences(plain, reqs, p_res, k_res))
+    paged, _ = PagedServeEngine(cfg, params, max_len=128,
+                                max_batch=4).run(reqs)
+    assert all(d["near_tie"] for d in divergences(kernel, reqs, k_res,
+                                                  paged))

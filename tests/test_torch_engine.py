@@ -1,0 +1,141 @@
+"""The port's sync ServeEngine against the reference's, on the CPU.
+
+Both engines serve the same requests of the ``base`` trace (the port's
+copy of the generator must draw the same prompts) for 16 greedy tokens
+each, with the reduced qwen2-7b and the reference's weights converted.
+The reference runs ``use_pallas=False``; the port runs its default
+``use_kernels=True``, so every prefill goes through ``flash_attention``
+and every decode step through ``decode_attention`` (their plain versions
+on the CPU).
+
+Required: ``run(batch=1)`` streams identical in float32; in bfloat16 a
+stream may first differ only at a near-tie, a step where the top-2 logit
+margin, recomputed by teacher forcing on the port's plain path
+(``use_kernels=False``), is below ``NEAR_TIE`` (0.05).  One ``batch=2``
+case pins the convoy semantics (prompts right-padded to the group
+maximum, logits taken at the padded last position): identical streams
+in float32.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config as jax_get_config
+from repro.models import init_params as jax_init_params
+from repro.serve import ServeEngine as JaxServeEngine
+from repro.serve.traces import get_trace as jax_get_trace
+from repro_torch.configs import get_config
+from repro_torch.convert import convert_params
+from repro_torch.serve import ServeEngine, get_trace
+from repro_torch.serve.parity import NEAR_TIE, divergences
+
+MAX_LEN, N_STEPS = 128, 16
+
+
+@functools.lru_cache(maxsize=None)
+def _models(dtype):
+    """(reference cfg, reference params, port cfg, port params)."""
+    jcfg = dataclasses.replace(jax_get_config("qwen2-7b").reduced(),
+                               dtype=dtype)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), dtype=dtype)
+    return jcfg, jparams, cfg, convert_params(
+        jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+def _traces(n, seed):
+    vocab = get_config("qwen2-7b").reduced().vocab_size
+    jreqs = jax_get_trace("base")(n, vocab, seed=seed, max_len=MAX_LEN)
+    reqs = get_trace("base")(n, vocab, seed=seed, max_len=MAX_LEN)
+    for a, b in zip(jreqs, reqs):
+        np.testing.assert_array_equal(a.prompt, b.prompt)
+        a.n_steps = b.n_steps = N_STEPS
+        assert a.prompt.shape[0] + N_STEPS <= MAX_LEN
+    return jreqs, reqs
+
+
+def _serve(dtype, batch, n=4, seed=2):
+    jcfg, jparams, cfg, params = _models(dtype)
+    jreqs, reqs = _traces(n, seed)
+    jres, jstats = JaxServeEngine(jcfg, jparams, max_len=MAX_LEN).run(
+        jreqs, batch=batch)
+    eng = ServeEngine(cfg, params, max_len=MAX_LEN, device="cpu")
+    res, stats = eng.run(reqs, batch=batch)
+    for f in ("requests", "tokens", "decode_steps", "batches"):
+        assert stats[f] == jstats[f], f
+    for a, b in zip(jres, res):
+        assert (b.prompt_len, b.admitted, b.finished, len(b.tokens)) == \
+            (a.prompt_len, a.admitted, a.finished, len(a.tokens))
+    return reqs, jres, res, eng
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_greedy_oracle_matches_reference(dtype):
+    reqs, jres, res, eng = _serve(dtype, batch=1)
+    plain = ServeEngine(dataclasses.replace(eng.cfg, use_kernels=False),
+                        eng.params, max_len=MAX_LEN, device="cpu")
+    div = divergences(plain, reqs, jres, res)
+    bad = [d for d in div if not d["near_tie"]]
+    assert not bad, f"streams diverge above the {NEAR_TIE} near-tie: {bad}"
+    if dtype == "float32":
+        assert not div, f"float32 greedy streams differ: {div}"
+
+
+def test_convoy_batch_matches_reference():
+    """batch=2 keeps the reference's convoy semantics exactly."""
+    reqs, jres, res, _ = _serve("float32", batch=2, n=3, seed=3)
+    assert len({r.prompt.shape[0] for r in reqs[:2]}) == 2   # padding runs
+    for a, b in zip(jres, res):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_run_batch1_equals_generate():
+    _, _, cfg, params = _models("float32")
+    _, reqs = _traces(2, seed=4)
+    eng = ServeEngine(cfg, params, max_len=MAX_LEN, device="cpu")
+    res, _ = eng.run(reqs)
+    for r, got in zip(reqs, res):
+        solo = eng.generate(r.prompt[None], n_steps=r.n_steps).tokens[0]
+        np.testing.assert_array_equal(solo, got.tokens)
+
+
+def test_prefill_pad_keeps_the_stream():
+    _, _, cfg, params = _models("float32")
+    _, reqs = _traces(1, seed=5)
+    p = reqs[0].prompt[None]
+    a = ServeEngine(cfg, params, max_len=MAX_LEN, device="cpu")
+    b = ServeEngine(cfg, params, max_len=MAX_LEN, prefill_pad=True,
+                    device="cpu")
+    np.testing.assert_array_equal(a.generate(p, n_steps=8).tokens,
+                                  b.generate(p, n_steps=8).tokens)
+
+
+def test_bucket_overflow_raises_value_error():
+    _, _, cfg, params = _models("float32")
+    eng = ServeEngine(cfg, params, max_len=32, device="cpu")
+    with pytest.raises(ValueError, match="max_len bucket of 32"):
+        eng.generate(np.zeros((1, 20), np.int32), n_steps=13)
+    with pytest.raises(ValueError, match="batch=0"):
+        eng.run([], batch=0)
+
+
+def test_temperature_sampling_is_seeded():
+    _, _, cfg, params = _models("float32")
+    eng = ServeEngine(cfg, params, max_len=64, device="cpu")
+    p = np.arange(24, dtype=np.int32).reshape(2, 12)
+    a = eng.generate(p, n_steps=8, temperature=1.0, seed=0).tokens
+    b = eng.generate(p, n_steps=8, temperature=1.0, seed=0).tokens
+    c = eng.generate(p, n_steps=8, temperature=1.0, seed=1).tokens
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+
+
+def test_params_on_another_device_raise():
+    _, _, cfg, params = _models("float32")
+    with pytest.raises(ValueError, match="params live on"):
+        ServeEngine(cfg, {"embed": params["embed"].to("meta")},
+                    device="cpu")

@@ -37,20 +37,25 @@ def test_port_and_chip_smoke_never_import_jax_or_reference():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["leaked"] == []
     for mod in ("repro_torch.kernels.decode_attention",
-                "repro_torch.serve.paged_engine", "repro_torch.convert",
-                "repro_torch.models.attention"):
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.serve.paged_engine", "repro_torch.serve.engine",
+                "repro_torch.convert", "repro_torch.models.attention"):
         assert mod in got["modules"]
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
-    from repro_torch.serve import PagedKVCache, PagedServeEngine
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import PagedKVCache, PagedServeEngine, ServeEngine
     cfg = get_config("qwen2-7b").reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         PagedServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedKVCache(cfg, n_blocks=3)
     with pytest.raises(RuntimeError, match="requested"):

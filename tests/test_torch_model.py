@@ -1,18 +1,29 @@
-"""The paged serving steps against the reference, in float32.
+"""The model's serving steps against the reference.
 
-``paged_decode_step`` and ``paged_prefill_step`` run on the reduced
-qwen2-7b with the reference's weights (converted) and the same random
-pools, tables and lengths; the reference runs its ``use_pallas=False``
-path.  The port runs both of its paths: ``use_kernels=True`` (the
-kernel's plain version on the CPU) and ``use_kernels=False`` (gather
-plus plain attention).  Logits and every pool row must agree to rtol
-1e-5, with an absolute floor of 1e-5 times the largest magnitude (the
-frameworks sum in different orders).  Prefill covers both write paths:
-the aligned single-block window and the row scatter that sends padded
-rows to the null block.
+The sync engine's steps (``forward`` in mode train, ``prefill`` with its
+padded cache, and one ``decode_step`` from the reference's prefill cache
+carried over by ``convert_cache``) run on the reduced qwen2-7b with the
+reference's weights (converted), in float32 and bfloat16, on both paths:
+the reference's ``use_pallas=False`` against the port's
+``use_kernels=False``, and the reference's Pallas kernels (interpret
+mode) against the port's kernels (their plain versions on the CPU).
+Tolerance: float32 rtol 1e-5; bfloat16 rtol 2e-2, a couple of bf16 ulps
+(the frameworks round activations to bf16 in different places, on the
+plain paths as much as on the kernel paths); both with an absolute floor
+of rtol times the reference's largest magnitude.
+
+The paged steps, ``paged_decode_step`` and ``paged_prefill_step``, run in
+float32 with the same random pools, tables and lengths; the reference
+runs its ``use_pallas=False`` path.  The port runs both of its paths:
+``use_kernels=True`` (the kernel's plain version on the CPU) and
+``use_kernels=False`` (gather plus plain attention).  Logits and every
+pool row must agree to rtol 1e-5.  Prefill covers both write paths: the
+aligned single-block window and the row scatter that sends padded rows
+to the null block.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -21,12 +32,17 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.kernels import dispatch as kdispatch
 from repro.models import init_params as jax_init_params
+from repro.models.model import decode_step as jax_decode_step
+from repro.models.model import forward as jax_forward
 from repro.models.model import paged_decode_step as jax_decode
 from repro.models.model import paged_prefill_step as jax_prefill
+from repro.models.model import prefill as jax_sync_prefill
 from repro_torch.configs import get_config
-from repro_torch.convert import convert_params
-from repro_torch.models import paged_decode_step, paged_prefill_step
+from repro_torch.convert import convert_cache, convert_params
+from repro_torch.models import (decode_step, forward, paged_decode_step,
+                                paged_prefill_step, prefill)
 
 JCFG = dataclasses.replace(jax_get_config("qwen2-7b").reduced(),
                            dtype="float32")
@@ -35,12 +51,95 @@ JPARAMS = jax_init_params(JCFG, jax.random.PRNGKey(0))
 PARAMS = convert_params(jax.tree.map(np.asarray, JPARAMS), device="cpu")
 PAGE, P = 128, 7
 RTOL = 1e-5
+SYNC_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
-def _close(port, ref):
+def _close(port, ref, rtol=RTOL):
     ref = np.asarray(ref, np.float32)
-    np.testing.assert_allclose(port.float().numpy(), ref, rtol=RTOL,
-                               atol=RTOL * max(1.0, np.abs(ref).max()))
+    np.testing.assert_allclose(port.float().numpy(), ref, rtol=rtol,
+                               atol=rtol * max(1.0, np.abs(ref).max()))
+
+
+@functools.lru_cache(maxsize=None)
+def _sync_models(dtype, kernels):
+    """(reference cfg, reference params, port cfg, port params) with the
+    reference's Pallas path and the port's kernel path both on or off."""
+    jcfg = dataclasses.replace(JCFG, dtype=dtype, use_pallas=kernels)
+    cfg = dataclasses.replace(CFG, dtype=dtype, use_kernels=kernels)
+    if dtype == JCFG.dtype:
+        return jcfg, JPARAMS, cfg, PARAMS
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, jparams, cfg, convert_params(
+        jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+def _reference_ran(decisions, kernel, kernels):
+    """With ``kernels`` the reference's Pallas kernel really ran (a
+    silent fallback would give matching outputs too)."""
+    dec = decisions.get(kernel)
+    if kernels:
+        assert dec is not None and dec.use_kernel, f"{kernel}: {dec}"
+    else:
+        assert dec is None
+
+
+SYNC_CASES = [(d, k) for d in SYNC_RTOL for k in (False, True)]
+SYNC_IDS = [f"{d}-{'kernels' if k else 'plain'}" for d, k in SYNC_CASES]
+
+
+@pytest.mark.parametrize("dtype,kernels", SYNC_CASES, ids=SYNC_IDS)
+def test_forward_train_matches_reference(dtype, kernels):
+    jcfg, jparams, cfg, params = _sync_models(dtype, kernels)
+    toks = np.random.default_rng(7).integers(
+        0, CFG.vocab_size, (2, 45)).astype(np.int32)
+    with kdispatch.decision_scope() as decisions:
+        jl, _ = jax_forward(jcfg, jparams, {"tokens": jnp.asarray(toks)},
+                            mode="train")
+    _reference_ran(decisions, "flash_attention", kernels)
+    tl, aux = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
+                      mode="train")
+    assert tl.shape == (2, 45, CFG.vocab_size) and tl.dtype == torch.float32
+    assert float(aux) == 0.0
+    _close(tl, jl, SYNC_RTOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,kernels", SYNC_CASES, ids=SYNC_IDS)
+def test_prefill_and_decode_step_match_reference(dtype, kernels):
+    """Prefill logits and the padded cache of every layer; then one
+    decode step on both sides from the reference's cache, carried over
+    by ``convert_cache``: logits and the updated cache."""
+    jcfg, jparams, cfg, params = _sync_models(dtype, kernels)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, CFG.vocab_size, (2, 37)).astype(np.int32)
+    nxt = rng.integers(0, CFG.vocab_size, (2, 1)).astype(np.int32)
+    max_len, rtol = 64, SYNC_RTOL[dtype]
+    with kdispatch.decision_scope() as decisions:
+        jl, jcache = jax_sync_prefill(jcfg, jparams,
+                                      {"tokens": jnp.asarray(toks)}, max_len)
+    _reference_ran(decisions, "flash_attention", kernels)
+    tl, cache = prefill(cfg, params, {"tokens": torch.from_numpy(toks)},
+                        max_len)
+    assert tl.shape == (2, 1, CFG.vocab_size)
+    _close(tl, jl, rtol)
+    np_cache = jax.tree.map(np.asarray, jcache)
+    want = convert_cache(np_cache, device="cpu")
+    assert len(cache) == len(want) == CFG.n_layers
+    for got, ref in zip(cache, want):
+        for n in "kv":
+            assert got[n].shape == (2, max_len, CFG.n_kv_heads, CFG.hd)
+            _close(got[n], ref[n].float().numpy(), rtol)
+    with kdispatch.decision_scope() as decisions:
+        jdl, jnew = jax_decode_step(jcfg, jparams, jcache, jnp.asarray(nxt),
+                                    jnp.int32(37))
+    _reference_ran(decisions, "decode_attention", kernels)
+    carried = convert_cache(np_cache, device="cpu")
+    tdl, new = decode_step(cfg, params, carried, torch.from_numpy(nxt), 37)
+    assert new is carried                       # written in place
+    _close(tdl, jdl, rtol)
+    for got, ref in zip(new, convert_cache(jax.tree.map(np.asarray, jnew),
+                                           device="cpu")):
+        for n in "kv":
+            _close(got[n], ref[n].float().numpy(), rtol)
 
 
 def _pools(seed):
