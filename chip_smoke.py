@@ -34,7 +34,29 @@ Phases (any failure exits non-zero and prints no result line):
    and the paged engine's streams may differ from it only at near-ties;
 6. profile: a paged decode tick and prefill chunk, a sync 2048-row
    prefill and a sync B = 4 decode step, host wall time against device
-   time.
+   time;
+7. MoE kernel check: qwen2-7b is freed, and ``moe_gmm`` is held to its
+   plain version at qwen3-moe's full width (128 experts, d_model 4096,
+   d_ff_expert 1536) at the decode, prefill and a ragged shape, and
+   timed beside ``torch.bmm`` and its bound;
+8. MoE paged serve: full-width qwen3-moe-235b-a22b cut in depth to 8 of
+   94 layers (random bf16 weights from a seed, ~42 GB) serves phase 3's
+   trace; every request OK, ``moe_gmm`` launched 3 x n_layers x (decode
+   ticks + prefill chunks) and the paged kernel n_layers x decode ticks.
+   One decode tick against the plain path with its routing logged: a
+   token whose top-8 experts differ on the two paths must be a routing
+   near-tie (plain top-8/top-9 probability margin < 1e-3 at its first
+   differing layer), the other tokens' logits within 2e-2; the greedy
+   streams against the plain path's may differ only at a logit near-tie
+   or at a routing near-tie (the first differing routing along the
+   teacher-forced stream);
+9. MoE sync serve: prompts of 2000 and 517 tokens one at a time at
+   ``max_len`` 2048; flash n_layers x prefills, decode n_layers x decode
+   steps, ``moe_gmm`` 3 x n_layers x (prefills + decode steps); the same
+   checks on a decode step of 8 x 512-token prompts and on the streams
+   (the two engines are not compared on MoE: capacity depends on each
+   step's length, so they compute different functions);
+10. MoE profile: a paged decode tick and a sync B = 8 decode step.
 
 The second-to-last line is a JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  It needs one GPU, ``nvcc`` (under
@@ -64,6 +86,15 @@ SYNC = dict(max_len=2048, prompts=(2000, 1537, 1024, 517), n_steps=16,
             batch=4, batch_len=1024, seed=1)
 KERNEL_ATOL, KERNEL_RTOL = 2e-2, 1e-2     # ~2 bf16 ulps at |x| <= 2
 LOGIT_REL_TOL = 2e-2
+# qwen3-moe at full width, cut from 94 to 8 layers so that its ~42 GB of
+# bf16 weights fit one 80 GB card beside the activations
+MOE = dict(arch="qwen3-moe-235b-a22b", n_layers=8, seed=0)
+MOE_SYNC = dict(max_len=2048, prompts=(2000, 517), n_steps=16,
+                check_batch=(8, 512), seed=2)
+# a token whose top-k and top-(k+1) router probabilities lie closer than
+# this on the plain path may route differently under the kernel path's
+# rounding: a routing near-tie (repro_torch.serve.parity)
+ROUTING_MARGIN = 1e-3
 
 
 class Failure(Exception):
@@ -676,6 +707,283 @@ def phase_sync_profile(torch, cfg, params):
             lambda: eng.decode(cache, tok, pos).argmax(-1).cpu())
 
 
+# -- phase 7: the MoE grouped GEMM ------------------------------------------
+
+def moe_gmm_record(torch, cfg):
+    """``moe_gmm`` at qwen3-moe's full width (E = 128 experts, bf16) at
+    the shapes its MoE layers give it: a paged decode tick's gate/up and
+    down products (8 slots x capacity 4 = 32 rows an expert), a 2000-row
+    sync prefill's gate/up (capacity 160), and a ragged case (C = 44,
+    N = 1000).  Each is held to the plain version; the first three are
+    timed beside ``torch.bmm`` and their bound."""
+    from repro_torch.kernels import moe_gmm, moe_gmm_plain
+    g = torch.Generator(device="cuda").manual_seed(4)
+    E, D, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    cases = {"decode gate/up": (32, D, F, True),
+             "decode down": (32, F, D, True),
+             "prefill gate/up (S = 2000)": (160, D, F, True),
+             "ragged C = 44, N = 1000": (44, D, 1000, False)}
+    flush = l2_flush(torch)
+    record, max_abs_err = None, 0.0
+    for label, (C, K, N, timed) in cases.items():
+        x = torch.randn((E, C, K), generator=g, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn((E, K, N), generator=g, device="cuda")
+             / math.sqrt(K)).to(torch.bfloat16)
+        got = moe_gmm(x, w)
+        torch.cuda.synchronize()
+        want = moe_gmm_plain(x, w)
+        err = held_to_plain(torch, f"moe_gmm ({label})", got, want)
+        max_abs_err = max(max_abs_err, err)
+        msg = (f"moe_gmm {label}: E={E} C={C} K={K} N={N} bf16: max abs err "
+               f"{err:.3g}")
+        if timed:
+            ms = time_ms(torch, lambda: moe_gmm(x, w), 50, flush)
+            plain_ms = time_ms(torch, lambda: moe_gmm_plain(x, w), 10, flush)
+            library_ms = time_ms(torch, lambda: torch.bmm(x, w), 50, flush)
+            lib_err = float((torch.bmm(x, w).float() - want.float()).abs()
+                            .max())
+            nbytes = (x.numel() + w.numel() + E * C * N) * x.element_size()
+            flops = 2 * E * C * K * N
+            bound_ms, bound_by = bound(nbytes, flops)
+            msg += (f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                    f"{nbytes / ms / 1e9:.3f} TB/s), plain {plain_ms:.4f} ms, "
+                    f"torch.bmm {library_ms:.4f} ms (max abs err vs plain "
+                    f"{lib_err:.3g}), bound {bound_ms:.5f} ms ({bound_by}: "
+                    f"{nbytes} bytes, {flops} flops)")
+            if record is None:              # the decode tick's shape
+                record = {"name": "moe_gmm", "route": "cuda",
+                          "source": "src/repro_torch/csrc/moe_gmm.cu",
+                          "replaces": "src/repro/kernels/moe_gmm.py:42",
+                          "launches": None, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms}
+        print(msg)
+        del x, w, got, want
+    torch.cuda.empty_cache()
+    record["max_abs_err"] = max_abs_err
+    return record
+
+
+# -- phases 8-10: qwen3-moe at full width, cut in depth ---------------------
+
+def moe_logit_check(torch, label, cfg, plain_cfg, params, state, step):
+    """One decode step on identical copies of ``state`` through the
+    kernel and the plain path, with the routing of every layer logged.
+    The step's rows are independent (one group each), so each row's
+    first layer whose top-k set differs is where its routing flipped:
+    the plain path's top-k / top-(k+1) margin there must be below
+    ``ROUTING_MARGIN`` (a near-tie), and the rows that never flipped
+    must meet the ``LOGIT_REL_TOL`` relative error.  (No float32
+    yardstick here: a float32 copy of the weights would not fit.)"""
+    from repro_torch.serve.parity import routing_differences, routing_log
+    out, logs = {}, {}
+    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+        st = _map(lambda t: t.clone(), state)
+        with routing_log() as log:
+            out[name] = step(c, params, st).float()
+        logs[name] = log
+        del st
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(out["kernel"]).all()), "non-finite logits")
+    rows = out["kernel"].shape[0]
+    first = {}                               # row -> (layer, margin)
+    n_pairs = 0
+    for layer, diff in routing_differences(cfg.moe.top_k, logs["kernel"],
+                                           logs["plain"]):
+        n_pairs += len(diff)
+        for r, m in diff:
+            first.setdefault(r, (layer, m))
+    same = [r for r in range(rows) if r not in first]
+    print(f"{label}: {n_pairs} of {rows * len(logs['plain'])} (token, "
+          f"layer) pairs route to different top-{cfg.moe.top_k} sets on the "
+          f"two paths; {len(first)} of {rows} tokens flip somewhere")
+    for r, (layer, m) in sorted(first.items()):
+        print(f"  token {r}: first differs at layer {layer}, plain top-"
+              f"{cfg.moe.top_k}/top-{cfg.moe.top_k + 1} margin {m:.3g}")
+        check(m < ROUTING_MARGIN, f"{label}: token {r} routes differently "
+              f"at layer {layer} with a plain-path margin {m:.3g} >= "
+              f"{ROUTING_MARGIN}: not a routing near-tie")
+    if first:
+        smallest = min(m for _, m in first.values())
+        print(f"  case: routing near-ties (smallest margin {smallest:.3g}"
+              f" < {ROUTING_MARGIN}); the relative-error limit holds over "
+              f"the {len(same)} tokens that never flipped")
+    else:
+        print("  case: every top-k set identical; the relative-error limit "
+              "holds over every token")
+    if same:
+        k, p = out["kernel"][same], out["plain"][same]
+        r = float((k - p).norm() / p.norm())
+        print(f"  logits of the {len(same)} unflipped tokens: kernel vs "
+              f"plain relative error {r:.3g} (limit {LOGIT_REL_TOL})")
+        check(r < LOGIT_REL_TOL, f"{label} logits: kernel vs plain path "
+              f"relative error {r:.3g} >= {LOGIT_REL_TOL}")
+    return {"pairs": n_pairs, "flipped": len(first),
+            "margin": min((m for _, m in first.values()), default=None)}
+
+
+def moe_streams_check(kernel, plain, reqs, p_results, results):
+    """Greedy streams of the kernel path against the plain path's: a
+    stream may first differ at a logit near-tie or at a routing near-tie
+    (``repro_torch.serve.parity``, margin ``ROUTING_MARGIN``)."""
+    from repro_torch.serve.parity import NEAR_TIE, divergences
+    div = divergences(plain, reqs, p_results, results, engine=kernel,
+                      routing_margin=ROUTING_MARGIN)
+    for d in div:
+        why = f"top-2 logit margin {d['margin']}"
+        if "routing" in d:
+            why += f" >= {NEAR_TIE}; first routing difference {d['routing']}"
+        print(f"request {d['request']}: kernel and plain paths diverge at "
+              f"step {d['step']}, {why}")
+    check(all(d["near_tie"] for d in div), "greedy streams diverge above the "
+          f"{NEAR_TIE} logit and the {ROUTING_MARGIN} routing near-tie "
+          "margins")
+    print(f"greedy tokens: {len(reqs) - len(div)}/{len(reqs)} requests "
+          f"identical to the plain path, the rest diverge at near-ties")
+
+
+def phase_moe_serve(torch, cfg, params):
+    """The paged engine serves the shared-prefix trace on the MoE model."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import paged_decode_step
+    from repro_torch.serve import OK
+    warm = serve_trace(cfg.vocab_size)[:2]
+    for r in warm:
+        r.n_steps = 2
+    new_engine(cfg, params).run(warm)
+
+    reqs = serve_trace(cfg.vocab_size)
+    eng = new_engine(cfg, params)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts())
+    check([r.status for r in results] == [OK] * len(reqs),
+          f"statuses {[r.status for r in results]}")
+    for r in results:
+        check(len(r.tokens) == SERVE["n_steps"], f"{len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              "token out of vocabulary range")
+    L = cfg.n_layers
+    for name, want, per in (
+            ("paged_decode_attention", L * stats.decode_steps,
+             "n_layers x decode ticks"),
+            ("moe_gmm", 3 * L * (stats.decode_steps + stats.prefill_chunks),
+             "3 x n_layers x (decode ticks + prefill chunks)")):
+        check(launches[name] == want, f"{name} launched {launches[name]} "
+              f"times, want {per} = {want}")
+    print(f"PagedServeEngine {cfg.name} ({L} layers) bf16, {len(reqs)} "
+          f"shared-prefix requests x {SERVE['n_steps']} greedy tokens: "
+          f"{stats.tokens} tokens in {wall:.3f} s = "
+          f"{stats.tokens / wall:.1f} tok/s, {stats.ticks} ticks "
+          f"({stats.decode_steps} decode, {stats.prefill_chunks} prefill "
+          f"chunks), prefix hit rate {stats.prefix_hit_rate:.3f}, launches "
+          f"{launches}")
+
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    probe = new_engine(cfg, params)
+    pend, tables, lens = prefilled_slots(probe, reqs)
+    args = [torch.tensor(a, device="cuda")
+            for a in (pend[:, None], tables, lens)]
+    routing = moe_logit_check(
+        torch, "MoE paged decode tick", cfg, plain_cfg, params,
+        probe.cache.pools,
+        lambda c, p, pools: paged_decode_step(c, p, pools, *args))
+    del probe
+
+    plain = new_engine(plain_cfg, params)
+    p_results, p_stats = plain.run(reqs)
+    check([r.status for r in p_results] == [OK] * len(reqs),
+          "plain-path replay did not finish every request OK")
+    check(p_stats.ticks == stats.ticks, f"plain replay took "
+          f"{p_stats.ticks} ticks, the kernel path {stats.ticks}")
+    moe_streams_check(eng, plain, reqs, p_results, results)
+    return launches, routing
+
+
+def phase_moe_sync(torch, cfg, params):
+    """The sync engine serves two long prompts one at a time on the MoE
+    model; one decode step of a batch is checked against the plain path."""
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, max_len=MOE_SYNC["max_len"], device="cuda")
+    eng.generate(np.arange(16, dtype=np.int32)[None], n_steps=2)   # warm-up
+    rng = np.random.default_rng(MOE_SYNC["seed"])
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, s)
+                    .astype(np.int32), n_steps=MOE_SYNC["n_steps"])
+            for s in MOE_SYNC["prompts"]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts())
+    L, prefills, steps = cfg.n_layers, len(reqs), stats.decode_steps
+    for name, want, per in (
+            ("flash_attention", L * prefills, "n_layers x prefills"),
+            ("decode_attention", L * steps, "n_layers x decode steps"),
+            ("moe_gmm", 3 * L * (prefills + steps),
+             "3 x n_layers x (prefills + decode steps)")):
+        check(launches[name] == want, f"{name} launched {launches[name]} "
+              f"times, want {per} = {want}")
+    for r in results:
+        check(len(r.tokens) == MOE_SYNC["n_steps"], f"{len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              "token out of vocabulary range")
+    n_run = sum(len(r.tokens) for r in results)
+    print(f"ServeEngine {cfg.name} ({L} layers) bf16, max_len "
+          f"{MOE_SYNC['max_len']}: run(batch=1) of prompts "
+          f"{list(MOE_SYNC['prompts'])} x {MOE_SYNC['n_steps']} greedy tokens "
+          f"in {wall:.3f} s ({n_run / wall:.1f} tok/s); {prefills} prefills, "
+          f"{steps} decode steps, launches {launches}")
+
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    batch = rng.integers(0, cfg.vocab_size, MOE_SYNC["check_batch"]
+                         ).astype(np.int32)
+    logits, cache = eng.prefill(batch)
+    tok = logits.argmax(-1)[:, None]
+    pos = batch.shape[1]
+    routing = moe_logit_check(
+        torch, f"MoE sync decode step (B={batch.shape[0]}, position {pos})",
+        cfg, plain_cfg, params, cache,
+        lambda c, p, cc: decode_step(c, p, cc, tok, pos)[0])
+    del cache
+
+    plain = ServeEngine(plain_cfg, params, max_len=MOE_SYNC["max_len"],
+                        device="cuda")
+    p_results, _ = plain.run(reqs)
+    moe_streams_check(eng, plain, reqs, p_results, results)
+    return launches, routing
+
+
+def phase_moe_profile(torch, cfg, params):
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    eng = new_engine(cfg, params)
+    pend, tables, lens = prefilled_slots(eng, serve_trace(cfg.vocab_size))
+    profile(torch, f"MoE paged decode tick (B={eng.max_batch}, lens "
+                   f"{int(lens.min())}..{int(lens.max())})",
+            lambda: eng.decode(pend, tables, lens).argmax(-1).cpu())
+    del eng
+    sync = ServeEngine(cfg, params, max_len=MOE_SYNC["max_len"],
+                       device="cuda")
+    batch = np.random.default_rng(MOE_SYNC["seed"] + 1).integers(
+        0, cfg.vocab_size, MOE_SYNC["check_batch"]).astype(np.int32)
+    logits, cache = sync.prefill(batch)
+    tok = logits.argmax(-1)[:, None]
+    pos = batch.shape[1]
+    profile(torch, f"MoE sync decode step (B={batch.shape[0]}, position "
+                   f"{pos})",
+            lambda: sync.decode(cache, tok, pos).argmax(-1).cpu())
+
+
 def main() -> int:
     try:
         import torch
@@ -725,12 +1033,41 @@ def main() -> int:
         phase_engines(torch, cfg, params, reqs, paged_results)
         phase_profile(torch, cfg, params, serve_trace(cfg.vocab_size))
         phase_sync_profile(torch, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+
+        full = get_config(MOE["arch"])
+        moe_cfg = dataclasses.replace(full, n_layers=MOE["n_layers"])
+        moe = moe_gmm_record(torch, moe_cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(moe_cfg, torch.Generator(
+            device="cuda").manual_seed(MOE["seed"]), device="cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"{moe_cfg.name} full width (d_model {moe_cfg.d_model}, "
+              f"{moe_cfg.n_heads} query heads over {moe_cfg.n_kv_heads} KV "
+              f"heads of {moe_cfg.hd}, {moe_cfg.moe.n_experts} experts top-"
+              f"{moe_cfg.moe.top_k} of width {moe_cfg.moe.d_ff_expert}, vocab "
+              f"{moe_cfg.vocab_size}) cut in depth from {full.n_layers} to "
+              f"{moe_cfg.n_layers} layers (dataclasses.replace(cfg, "
+              f"n_layers={MOE['n_layers']})): {n_params / 1e9:.2f} B params "
+              f"({moe_cfg.dtype}, {torch.cuda.memory_allocated() / 2**30:.2f}"
+              f" GiB) drawn on the card in {time.perf_counter() - t0:.1f} s")
+        launches, routing = phase_moe_serve(torch, moe_cfg, params)
+        moe_launches = launches["moe_gmm"]
+        launches, routing_sync = phase_moe_sync(torch, moe_cfg, params)
+        moe["launches"] = moe_launches + launches["moe_gmm"]
+        phase_moe_profile(torch, moe_cfg, params)
+        print(f"MoE phases: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; routing "
+              f"flips (paged tick, sync step): {routing}, {routing_sync}")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [paged, flash, decode]}))
+    print(json.dumps({"kernels": [paged, flash, decode, moe]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,9 @@
 """Architecture registry (twin of ``repro.configs``).
 
 ``get_config(name)`` returns the published config from the module named
-after the architecture.  Only ``qwen2-7b`` is ported so far; the rest of
-the reference's catalog arrives with the layer kinds it needs (ROADMAP
-queue 1).
+after the architecture.  Ported so far: ``qwen2-7b`` (dense GQA) and
+``qwen3-moe-235b-a22b`` (GQA with MoE FFNs); the rest of the reference's
+catalog arrives with the layer kinds it needs (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["ARCHS", "get_config"]
 
-ARCHS = ["qwen2-7b"]
+ARCHS = ["qwen2-7b", "qwen3-moe-235b-a22b"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -12,7 +12,7 @@ import math
 import torch
 
 __all__ = ["flash_attention_ref", "decode_attention_ref",
-           "paged_decode_attention_ref"]
+           "paged_decode_attention_ref", "moe_gmm_ref"]
 
 
 def _grouped_full_attn(q, k, v, *, causal, kv_len=None):
@@ -59,3 +59,9 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, kv_len):
     k = k_pool[tables].reshape(B, -1, KV, hd)
     v = v_pool[tables].reshape(B, -1, KV, hd)
     return decode_attention_ref(q, k, v, kv_len)
+
+
+def moe_gmm_ref(x, w):
+    """(E, C, K) @ (E, K, N) -> (E, C, N), f32 accumulation."""
+    y = torch.einsum("eck,ekn->ecn", x.float(), w.float())
+    return y.to(x.dtype)

@@ -1,10 +1,10 @@
-"""Decoder blocks and layer schedules, dense subset
-(twin of ``repro.models.blocks``).
+"""Decoder blocks and layer schedules (twin of ``repro.models.blocks``).
 
 A layer signature ``(mixer, is_moe)`` classifies every layer, as in the
 reference.  Every block is pre-norm with residuals:
-``h += mixer(norm(h)); h += ffn(norm(h))``.  Only plain GQA attention
-with a dense MLP is ported, in the reference's three modes
+``h += mixer(norm(h)); h += ffn(norm(h))``, the FFN a dense MLP or, for
+an MoE signature, :func:`repro_torch.models.moe.moe_apply`.  Only plain
+GQA attention is ported as the mixer, in the reference's three modes
 (:func:`apply_layer`: train, prefill, decode against a contiguous cache)
 and the two paged steps; other layer kinds raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -20,6 +20,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype, mlp_apply, norm_apply
+from repro_torch.models.moe import init_moe, moe_apply
 
 __all__ = ["Sig", "layer_sigs", "schedule", "init_norm", "init_mlp",
            "init_layer", "init_layer_cache", "apply_layer",
@@ -33,7 +34,6 @@ _NOT_PORTED = {
     "attn_cross": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
     "enc_attn": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
     "mla": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
-    "moe": "ROADMAP queue 1 item 8 (MoE)",
 }
 
 
@@ -62,10 +62,10 @@ def schedule(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def check_ported(cfg: ModelConfig, sig: Sig) -> None:
-    """Raise ``NotImplementedError`` for a layer kind not ported yet."""
-    mixer, is_moe = sig
-    kind = "moe" if is_moe else ("mla" if cfg.mla and mixer == "attn"
-                                 else mixer)
+    """Raise ``NotImplementedError`` for a mixer not ported yet (either
+    FFN, dense or MoE, is ported)."""
+    mixer, _ = sig
+    kind = "mla" if cfg.mla and mixer == "attn" else mixer
     if kind != "attn":
         raise NotImplementedError(
             f"{cfg.name}: layer kind {kind!r} is not ported to repro_torch "
@@ -105,7 +105,10 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, sig: Sig,
     check_ported(cfg, sig)
     w: Dict = {"ln1": init_norm(cfg, device),
                "mixer": attn.init_attn(cfg, gen, device)}
-    if cfg.d_ff > 0:
+    if sig[1]:
+        w["ln2"] = init_norm(cfg, device)
+        w["ffn"] = init_moe(cfg, gen, device)
+    elif cfg.d_ff > 0:
         w["ln2"] = init_norm(cfg, device)
         w["ffn"] = init_mlp(cfg, gen, device)
     return w
@@ -136,10 +139,19 @@ def _attn_prefill_cache(cfg: ModelConfig, w, x: torch.Tensor,
     return {"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len)}
 
 
-def _ffn(cfg: ModelConfig, w, h: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``h + ffn(norm(h))`` and the FFN's aux loss (the MoE balance
+    loss; a zero f32 scalar for a dense MLP or a block without FFN)."""
     if "ffn" not in w:
-        return h
-    return h + mlp_apply(cfg, w["ffn"], norm_apply(cfg, w["ln2"], h))
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    z = norm_apply(cfg, w["ln2"], h)
+    if sig[1]:
+        y, aux = moe_apply(cfg, w["ffn"], z)
+    else:
+        y = mlp_apply(cfg, w["ffn"], z)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, aux
 
 
 def apply_layer(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor, *,
@@ -154,8 +166,8 @@ def apply_layer(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor, *,
     * ``"decode"``: returns (h, cache), h (B, 1, D); the new row is
       written into ``cache`` in place at ``pos``.
 
-    ``aux`` (the MoE balance loss in the reference) is a zero f32 scalar
-    for the dense layers ported here."""
+    ``aux`` is the MoE balance loss of an MoE layer, a zero f32 scalar
+    for a dense one."""
     check_ported(cfg, sig)
     x = norm_apply(cfg, w["ln1"], h)
     new_cache: Dict = {}
@@ -168,10 +180,9 @@ def apply_layer(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor, *,
                                             max_len)
     else:
         raise ValueError(f"apply_layer: unknown mode {mode!r}")
-    h = _ffn(cfg, w, h + y)
+    h, aux = _ffn(cfg, sig, w, h + y)
     if mode == "decode":
         return h, new_cache
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return (h, aux) if mode == "train" else (h, aux, new_cache)
 
 
@@ -185,7 +196,7 @@ def apply_layer_paged(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor,
     y, cache = attn.attn_decode_paged(cfg, w["mixer"],
                                       norm_apply(cfg, w["ln1"], h), cache,
                                       block_tables, lens)
-    return _ffn(cfg, w, h + y), cache
+    return _ffn(cfg, sig, w, h + y)[0], cache
 
 
 def apply_layer_prefill_paged(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor,
@@ -200,4 +211,4 @@ def apply_layer_prefill_paged(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor,
                                        norm_apply(cfg, w["ln1"], h), cache,
                                        block_tables, lens, n_valid,
                                        aligned=aligned)
-    return _ffn(cfg, w, h + y), cache
+    return _ffn(cfg, sig, w, h + y)[0], cache

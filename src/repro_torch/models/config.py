@@ -4,14 +4,14 @@ The fields, their defaults and ``reduced()`` are the reference's, field
 for field, so a config round-trips between the two packages (the CPU
 tests pin this).  The one difference is the kernel flag:
 ``use_kernels`` replaces the reference's ``use_pallas`` /
-``pallas_device`` pair and defaults to True.  With it set, the paged
-decode tick runs the hand-written CUDA kernel on CUDA tensors and its
-plain PyTorch version on CPU tensors; ``use_kernels=False`` asks for the
-reference's gather-plus-plain-attention path instead.
+``pallas_device`` pair and defaults to True.  With it set, attention and
+the MoE expert products run the hand-written CUDA kernels on CUDA
+tensors and their plain PyTorch versions on CPU tensors;
+``use_kernels=False`` asks for the reference's plain path instead.
 
-Fields the dense serving path does not read yet (MoE, MLA, SSM, cross
-attention, encoder, the training knobs) are kept so later slices port
-their layers against an unchanged config.
+Fields the serving path does not read yet (MLA, SSM, cross attention,
+encoder, the training knobs) are kept so later slices port their layers
+against an unchanged config.
 """
 
 from __future__ import annotations

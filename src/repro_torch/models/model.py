@@ -1,4 +1,4 @@
-"""Top-level LM assembly (twin of ``repro.models.model``, dense subset).
+"""Top-level LM assembly (twin of ``repro.models.model``).
 
 Parameters are a plain dict: ``embed`` (V, D), ``final_norm``,
 ``unembed`` (D, V) unless embeddings are tied, and ``layers``, a list
@@ -98,7 +98,8 @@ def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
     ``"prefill"``, logits (B, 1, V) f32 at the last position or at
     ``last_pos`` (the true last token of right-padded prompts), the cache
     padded to ``max_len``.
-    ``aux`` is a zero f32 scalar (no MoE layers are ported)."""
+    ``aux`` is the sum of the layers' MoE balance losses, a zero f32
+    scalar for a dense model."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode must be 'train' or 'prefill', got "
                          f"{mode!r}")

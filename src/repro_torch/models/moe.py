@@ -1,0 +1,180 @@
+"""Mixture-of-Experts FFN: top-k router and capacity-based gather dispatch
+(twin of ``repro.models.moe``).
+
+Groups are batch rows.  Each group's S tokens pick their top-k experts;
+each expert takes the first C = :func:`capacity` assignments that reach
+it in token order and drops the rest (Switch semantics).  Integer slot
+maps move the tokens with gathers:
+
+  dispatch:  xbuf[g, e, c, :] = x[g, src[g, e, c], :]
+  experts:   ybuf = swiglu(xbuf @ We_in) @ We_out
+  combine:   y[g, t] = sum_k gate * ybuf[g, e(t, k), p(t, k), :]
+
+Two paths for the three expert products, as in the reference:
+
+* ``cfg.use_kernels`` (the reference's ``use_pallas``): the batch groups
+  fold into each expert's rows and the product runs
+  :func:`repro_torch.kernels.moe_gmm` (the CUDA kernel on the card, its
+  plain version on the CPU), which rounds its output to x's dtype; the
+  gate and up outputs are then taken to f32 for the SiLU product;
+* otherwise :func:`repro_torch.models.layers.mm`, whose gate and up
+  outputs stay in f32.
+
+The reference's sharding annotations have no counterpart here; the
+sharded path waits for the parallel slice (ROADMAP queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import moe_gmm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import cdtype, dense, mm
+
+__all__ = ["init_moe", "moe_apply", "router_topk", "capacity"]
+
+
+def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
+    m = cfg.moe
+    c = int(math.ceil(tokens_per_group * m.top_k * m.capacity_factor
+                      / m.n_experts))
+    return max(4, ((c + 3) // 4) * 4)  # pad to a multiple of 4
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator,
+             device: torch.device) -> Dict:
+    """Router (f32), the experts' gate/up/down weights with a leading E
+    axis, and the shared experts when the config has them; the
+    reference's initialisation scales."""
+    m = cfg.moe
+    D, E, F_ = cfg.d_model, m.n_experts, m.d_ff_expert
+    dt = cdtype(cfg)
+    s = 1.0 / math.sqrt(D)
+
+    def normal(shape, std, dtype=dt):
+        return (torch.randn(shape, generator=gen, device=device)
+                * std).to(dtype)
+
+    w = {"router": normal((D, E), s, torch.float32),
+         "we_g": normal((E, D, F_), s),
+         "we_i": normal((E, D, F_), s),
+         "we_o": normal((E, F_, D), 1.0 / math.sqrt(F_)
+                        / math.sqrt(max(1, cfg.n_layers)))}
+    if m.n_shared:
+        Fs = m.d_ff_shared or m.n_shared * F_
+        w["shared"] = {"wg": normal((D, Fs), s), "wi": normal((D, Fs), s),
+                       "wo": normal((Fs, D), 1.0 / math.sqrt(Fs))}
+    return w
+
+
+def router_topk(cfg: ModelConfig, w_router: torch.Tensor, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router: f32 softmax over experts, top-k, renormalised gates.
+
+    x: (G, S, D) -> gates (G, S, K) f32, idx (G, S, K) int64, aux_loss
+    scalar.  Ties go to the lower expert index, as ``jax.lax.top_k``
+    breaks them (a stable descending sort; ``torch.topk`` promises no
+    order)."""
+    m = cfg.moe
+    logits = torch.matmul(x.float(), w_router.float())
+    probs = torch.softmax(logits, dim=-1)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = vals[..., :m.top_k], order[..., :m.top_k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # Switch-style load-balance aux loss.
+    me = probs.mean(dim=(0, 1))                                      # (E,)
+    ce = F.one_hot(idx, m.n_experts).float().mean(dim=(0, 1, 2))     # (E,)
+    aux = m.n_experts * torch.sum(me * ce)
+    return gates, idx, aux
+
+
+def _slot_maps(cfg: ModelConfig, idx: torch.Tensor, C: int):
+    """Integer slot maps from expert assignments.
+
+    idx: (G, A) expert ids (A = S*K assignments in token order).
+    Returns:
+      pos   (G, A)   position of each assignment within its expert
+      keep  (G, A)   pos < C
+      src   (G, E*C) assignment index feeding each expert slot (0 if empty)
+      used  (G, E*C) slot occupancy mask
+
+    Assignments past capacity scatter to a sink slot E*C, sliced off
+    after (the reference's out-of-bounds scatter with ``mode="drop"``);
+    kept slots are unique, so only the sink sees duplicate writes."""
+    E = cfg.moe.n_experts
+    G, A = idx.shape
+    idx = idx.long()
+    pos_all = torch.cumsum(F.one_hot(idx, E), dim=1) - 1            # (G,A,E)
+    pos = torch.gather(pos_all, 2, idx[..., None])[..., 0]
+    keep = pos < C
+    slot = torch.where(keep, idx * C + pos, E * C)
+    arange = torch.arange(A, device=idx.device).expand(G, A)
+    src = torch.zeros((G, E * C + 1), dtype=torch.long, device=idx.device)
+    src.scatter_(1, slot, arange)
+    used = torch.zeros((G, E * C + 1), dtype=torch.bool, device=idx.device)
+    used.scatter_(1, slot, True)
+    return pos, keep, src[:, :E * C], used[:, :E * C]
+
+
+def _expert_mm(x4: torch.Tensor, w3: torch.Tensor, *, use_kernels: bool,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Per-expert batched matmul (B, E, C, K) @ (E, K, N) -> (B, E, C, N),
+    accumulated in f32; the result is f32, or ``out_dtype`` when given.
+
+    The batch groups fold into each expert's rows.  With ``use_kernels``
+    :func:`moe_gmm` runs, whose output is in x's dtype (one rounding
+    more than ``mm``'s f32 output: the reference's Pallas path takes it
+    too); otherwise ``mm`` runs (folding first, so that the weights are
+    not broadcast over B)."""
+    B, E, C, K = x4.shape
+    N = w3.shape[2]
+    xe = x4.transpose(0, 1).reshape(E, B * C, K)
+    if use_kernels:
+        y = moe_gmm(xe, w3)
+        y = y.to(torch.float32 if out_dtype is None else out_dtype)
+    else:
+        y = mm(xe, w3, out_dtype=out_dtype)
+    return y.reshape(E, B, C, N).transpose(0, 1)
+
+
+def moe_apply(cfg: ModelConfig, w, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss).  Groups = batch rows."""
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.n_experts, m.top_k
+    C = capacity(cfg, S)
+    gates, idx, aux = router_topk(cfg, w["router"], x)
+
+    idx_flat = idx.reshape(B, S * K)                   # assignment order: (t, k)
+    pos, keep, src, used = _slot_maps(cfg, idx_flat, C)
+
+    # token index of each assignment; gather tokens into expert slot buffers
+    tok_of_src = src // K                                             # (B, E*C)
+    xbuf = torch.gather(x, 1, tok_of_src[..., None].expand(-1, -1, D))
+    xbuf = xbuf * used[..., None].to(x.dtype)
+    xbuf = xbuf.reshape(B, E, C, D)
+
+    h = F.silu(_expert_mm(xbuf, w["we_g"], use_kernels=cfg.use_kernels)) \
+        * _expert_mm(xbuf, w["we_i"], use_kernels=cfg.use_kernels)
+    h = h.to(x.dtype)
+    ybuf = _expert_mm(h, w["we_o"], use_kernels=cfg.use_kernels,
+                      out_dtype=x.dtype)
+
+    # combine: gather each kept assignment's slot output, weight, sum over k
+    slot = torch.where(keep, idx_flat.long() * C + pos, 0)            # (B,S*K)
+    y_k = torch.gather(ybuf.reshape(B, E * C, D), 1,
+                       slot[..., None].expand(-1, -1, D))             # (B,S*K,D)
+    gk = (gates.reshape(B, S * K) * keep.float()).to(x.dtype)
+    y = (y_k * gk[..., None]).reshape(B, S, K, D).sum(dim=2)
+
+    if m.n_shared:
+        ws = w["shared"]
+        hs = F.silu(dense(x, ws["wg"])) * dense(x, ws["wi"])
+        y = y + dense(hs, ws["wo"])
+    return y, aux * m.router_aux_weight

@@ -50,3 +50,22 @@ def test_kernel_flag_defaults_on():
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not yet ported"):
         get_config("mamba2-370m")
+
+
+def test_moe_config_pinned():
+    """The MoE slice's model: published widths, and the reduced variant
+    the CPU tests run (4 experts, top-2)."""
+    cfg = get_config("qwen3-moe-235b-a22b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            cfg.d_ff, cfg.vocab_size, cfg.family) == \
+        (94, 4096, 64, 4, 128, 0, 151936, "moe")
+    m = cfg.moe
+    assert (m.n_experts, m.top_k, m.d_ff_expert, m.n_shared,
+            m.capacity_factor, m.router_aux_weight) == \
+        (128, 8, 1536, 0, 1.25, 0.001)
+    assert cfg.first_k_dense == 0
+    assert all(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    small = cfg.reduced()
+    assert (small.n_layers, small.d_model, small.moe.n_experts,
+            small.moe.top_k, small.moe.d_ff_expert) == (4, 128, 4, 2, 64)
+    assert small.use_kernels is True

@@ -12,7 +12,10 @@ magnitude; a kernel and its plain version round at the same points but
 sum in different orders), plus rtol 2**-7 (one bf16 ulp at any
 magnitude) for the flash and contiguous decode kernels, whose outputs
 reach |x| >= 2 where an ulp is 2**-6; float32 atol 1e-5 (1e-4 for flash
-attention, whose sums run over up to 300 keys).
+attention, whose sums run over up to 300 keys).  The MoE grouped GEMM:
+bfloat16 atol 1e-2 plus rtol 2**-7 (both round the same f32 sums once,
+summed in different orders); float32 atol 2e-3 plus rtol 1e-5 (sums of
+up to 4096 products, outputs up to ~300 in magnitude).
 """
 
 import dataclasses
@@ -25,7 +28,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  flash_attention, flash_attention_plain,
-                                 launch_counts, paged_decode_attention,
+                                 launch_counts, moe_gmm, moe_gmm_plain,
+                                 paged_decode_attention,
                                  paged_decode_attention_plain,
                                  reset_launch_counts)
 from repro_torch.models import init_params
@@ -187,3 +191,76 @@ def test_sync_engine_kernel_path_matches_plain_path(cuda):
                                 max_batch=4).run(reqs)
     assert all(d["near_tie"] for d in divergences(kernel, reqs, k_res,
                                                   paged))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,K,N,offset", [
+    (4, 20, 100, 60, 0),        # capacity-trimmed C, ragged K and N
+    (3, 44, 37, 129, 0),        # K, N not multiples of a 16-byte load
+    (2, 8, 4096, 64, 0),        # decode-like depth
+    (1, 130, 64, 200, 0),       # three row tiles, ragged column tile
+    (2, 12, 64, 64, 1),         # operands not 16-byte aligned
+])
+def test_moe_gmm_kernel_matches_plain(cuda, E, C, K, N, offset, dtype):
+    g = torch.Generator().manual_seed(E * C + K + N)
+
+    def operand(*shape):
+        flat = _randn(g, math.prod(shape) + offset).to(dtype).cuda()
+        return flat[offset:].view(shape)
+
+    x, w = operand(E, C, K), operand(E, K, N)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    before = launch_counts()["moe_gmm"]
+    got = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_gmm"] == before + 1
+    want = moe_gmm_plain(x, w)
+    assert torch.isfinite(got).all() and got.dtype == dtype
+    atol = 2e-3 if dtype == torch.float32 else ATOL[dtype]
+    rtol = 1e-5 if dtype == torch.float32 else RTOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+# The routing near-tie margin for the reduced MoE model: its router
+# spreads over 4 experts, not 128, so its top-2 probabilities are ~8x
+# the full model's top-8 ones, and the same router-logit gap is a ~8x
+# larger probability margin than the full model's 1e-3.
+REDUCED_ROUTING_MARGIN = 1e-2
+
+
+@pytest.mark.cuda
+def test_moe_engines_kernel_path_matches_plain_path(cuda):
+    """The reduced qwen3-moe served on the card by both engines: three
+    moe_gmm launches per layer per step (paged: decode ticks and prefill
+    chunks; sync: prefills and decode steps), every request OK, and the
+    greedy streams equal to the plain path's up to logit or routing
+    near-ties."""
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    reqs = get_trace("base")(5, cfg.vocab_size, seed=1)
+    paged = PagedServeEngine(cfg, params, max_len=128, max_batch=4)
+    reset_launch_counts()
+    k_res, k_stats = paged.run(reqs)
+    assert launch_counts()["moe_gmm"] == 3 * cfg.n_layers * (
+        k_stats.decode_steps + k_stats.prefill_chunks)
+    assert [r.status for r in k_res] == [OK] * len(reqs)
+    plain = PagedServeEngine(plain_cfg, params, max_len=128, max_batch=4)
+    p_res, _ = plain.run(reqs)
+    assert all(d["near_tie"] for d in divergences(
+        plain, reqs, p_res, k_res, engine=paged,
+        routing_margin=REDUCED_ROUTING_MARGIN))
+    sync = ServeEngine(cfg, params, max_len=128)
+    reset_launch_counts()
+    s_res, s_stats = sync.run(reqs)
+    assert launch_counts()["moe_gmm"] == 3 * cfg.n_layers * (
+        len(reqs) + s_stats.decode_steps)
+    plain = ServeEngine(plain_cfg, params, max_len=128)
+    p_res, _ = plain.run(reqs)
+    assert all(d["near_tie"] for d in divergences(
+        plain, reqs, p_res, s_res, engine=sync,
+        routing_margin=REDUCED_ROUTING_MARGIN))

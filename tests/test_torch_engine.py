@@ -139,3 +139,42 @@ def test_params_on_another_device_raise():
     with pytest.raises(ValueError, match="params live on"):
         ServeEngine(cfg, {"embed": params["embed"].to("meta")},
                     device="cpu")
+
+
+# -- MoE: the reduced qwen3-moe-235b-a22b (4 experts, top-2) ----------------
+
+MOE = "qwen3-moe-235b-a22b"
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_models(dtype):
+    jcfg = dataclasses.replace(jax_get_config(MOE).reduced(), dtype=dtype)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
+    cfg = dataclasses.replace(get_config(MOE).reduced(), dtype=dtype)
+    return jcfg, jparams, cfg, convert_params(
+        jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_greedy_oracle_matches_reference(dtype):
+    """The MoE model through the sync engine on the kernel path (the
+    moe_gmm and attention kernels' plain versions on the CPU): equal
+    statistics and per-request timing; float32 streams identical,
+    bfloat16 streams under the near-tie rule."""
+    jcfg, jparams, cfg, params = _moe_models(dtype)
+    jreqs, reqs = _traces(4, seed=6)
+    jres, jstats = JaxServeEngine(jcfg, jparams, max_len=MAX_LEN).run(jreqs)
+    res, stats = ServeEngine(cfg, params, max_len=MAX_LEN,
+                             device="cpu").run(reqs)
+    for f in ("requests", "tokens", "decode_steps", "batches"):
+        assert stats[f] == jstats[f], f
+    for a, b in zip(jres, res):
+        assert (b.prompt_len, b.admitted, b.finished, len(b.tokens)) == \
+            (a.prompt_len, a.admitted, a.finished, len(a.tokens))
+    plain = ServeEngine(dataclasses.replace(cfg, use_kernels=False), params,
+                        max_len=MAX_LEN, device="cpu")
+    div = divergences(plain, reqs, jres, res)
+    bad = [d for d in div if not d["near_tie"]]
+    assert not bad, f"streams diverge above the {NEAR_TIE} near-tie: {bad}"
+    if dtype == "float32":
+        assert not div, f"float32 greedy streams differ: {div}"

@@ -60,3 +60,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         PagedKVCache(cfg, n_blocks=3)
     with pytest.raises(RuntimeError, match="requested"):
         init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_moe_modules_import_clean():
+    """The MoE slice's modules are part of the walk above and load
+    neither jax nor the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    for mod in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
+                "repro_torch.configs.qwen3_moe_235b_a22b"):
+        assert mod in got["modules"]

@@ -228,3 +228,131 @@ def test_prefill_then_decode_continues_the_sequence():
                                tables, torch.tensor([0], dtype=torch.int32),
                                torch.tensor([37], dtype=torch.int32))
     _close(step, whole.numpy())
+
+
+# -- MoE: the reduced qwen3-moe-235b-a22b (4 experts, top-2) ----------------
+#
+# Held in float32 on both paths (rtol 1e-5).  In bfloat16 a whole-model
+# comparison is not meaningful: a token whose top-2 experts are within
+# rounding noise routes differently under different rounding, and the
+# reference's own bf16 run differs from its f32 run by up to 0.3 of the
+# logits' scale at such tokens.  bf16 is held where the inputs are
+# shared, per MoE layer (tests/test_torch_moe.py), and end to end by the
+# engines' near-tie rule (tests/test_torch_engine.py,
+# tests/test_torch_paged_engine.py).
+
+MOE = "qwen3-moe-235b-a22b"
+MOE_CASES = [True, False]
+MOE_IDS = ["kernels", "plain"]
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_models(dtype, kernels):
+    """(reference cfg, reference params, port cfg, port params) of the
+    reduced MoE model, both kernel paths on or off."""
+    jcfg = dataclasses.replace(jax_get_config(MOE).reduced(), dtype=dtype,
+                               use_pallas=kernels)
+    cfg = dataclasses.replace(get_config(MOE).reduced(), dtype=dtype,
+                              use_kernels=kernels)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
+    return jcfg, jparams, cfg, convert_params(
+        jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+def test_convert_carries_moe_leaves():
+    """The stacked MoE leaves come out one per layer: the router in f32,
+    the experts' weights with their leading E axis, bit for bit."""
+    _, jparams, cfg, params = _moe_models("bfloat16", False)
+    m, D = cfg.moe, cfg.d_model
+    assert len(params["layers"]) == cfg.n_layers
+    stacked = jparams["layers"][0]["ffn"]
+    for i, layer in enumerate(params["layers"]):
+        ffn = layer["ffn"]
+        assert set(ffn) == {"router", "we_g", "we_i", "we_o"}
+        assert ffn["router"].dtype == torch.float32
+        assert ffn["router"].shape == (D, m.n_experts)
+        assert ffn["we_g"].shape == ffn["we_i"].shape == \
+            (m.n_experts, D, m.d_ff_expert)
+        assert ffn["we_o"].shape == (m.n_experts, m.d_ff_expert, D)
+        for name in ("we_g", "we_i", "we_o"):
+            assert ffn[name].dtype == torch.bfloat16
+            np.testing.assert_array_equal(
+                ffn[name].float().numpy(),
+                np.asarray(stacked[name][i], np.float32))
+
+
+@pytest.mark.parametrize("kernels", MOE_CASES, ids=MOE_IDS)
+def test_moe_forward_train_matches_reference(kernels):
+    jcfg, jparams, cfg, params = _moe_models("float32", kernels)
+    toks = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 45)).astype(np.int32)
+    with kdispatch.decision_scope() as decisions:
+        jl, jaux = jax_forward(jcfg, jparams, {"tokens": jnp.asarray(toks)},
+                               mode="train")
+    _reference_ran(decisions, "moe_gmm", kernels)
+    tl, aux = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
+                      mode="train")
+    assert tl.shape == (2, 45, cfg.vocab_size) and tl.dtype == torch.float32
+    assert float(aux) > 0.0
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    _close(tl, jl)
+
+
+@pytest.mark.parametrize("kernels", MOE_CASES, ids=MOE_IDS)
+def test_moe_prefill_and_decode_step_match_reference(kernels):
+    jcfg, jparams, cfg, params = _moe_models("float32", kernels)
+    rng = np.random.default_rng(10)
+    toks = rng.integers(0, cfg.vocab_size, (2, 37)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+    max_len, rtol = 64, RTOL
+    with kdispatch.decision_scope() as decisions:
+        jl, jcache = jax_sync_prefill(jcfg, jparams,
+                                      {"tokens": jnp.asarray(toks)}, max_len)
+    _reference_ran(decisions, "moe_gmm", kernels)
+    tl, cache = prefill(cfg, params, {"tokens": torch.from_numpy(toks)},
+                        max_len)
+    _close(tl, jl, rtol)
+    np_cache = jax.tree.map(np.asarray, jcache)
+    for got, ref in zip(cache, convert_cache(np_cache, device="cpu")):
+        for n in "kv":
+            _close(got[n], ref[n].float().numpy(), rtol)
+    with kdispatch.decision_scope() as decisions:
+        jdl, _ = jax_decode_step(jcfg, jparams, jcache, jnp.asarray(nxt),
+                                 jnp.int32(37))
+    _reference_ran(decisions, "moe_gmm", kernels)
+    tdl, _ = decode_step(cfg, params, convert_cache(np_cache, device="cpu"),
+                         torch.from_numpy(nxt), 37)
+    _close(tdl, jdl, rtol)
+
+
+@pytest.mark.parametrize("kernels", MOE_CASES, ids=MOE_IDS)
+def test_moe_paged_steps_match_reference(kernels):
+    """A decode tick over ragged slots, then a right-padded prefill
+    chunk (30 valid rows of 48) on the pools it wrote.  The reference
+    runs its plain path (its paged steps take no Pallas kernel)."""
+    jcfg, jparams, cfg, params = _moe_models("float32", False)
+    cfg = dataclasses.replace(cfg, use_kernels=kernels)
+    pools = _pools(11)
+    tables = np.array([[1, 2, 0], [3, 0, 0], [4, 5, 6], [0, 0, 0]], np.int32)
+    lens = np.array([150, 40, 256, 0], np.int32)
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab_size, (4, 1)).astype(np.int32)
+    jpools, tpools = _both(pools)
+    jl, jnew = jax_decode(jcfg, jparams, jpools, jnp.asarray(toks),
+                          jnp.asarray(tables), jnp.asarray(lens))
+    tl = paged_decode_step(cfg, params, tpools, torch.from_numpy(toks),
+                           torch.from_numpy(tables), torch.from_numpy(lens))
+    _close(tl, jl)
+    _check_pools(tpools, jnew)
+    ptables = np.array([[1, 2, 0], [4, 0, 0]], np.int32)
+    plens = np.array([100, 0], np.int32)
+    nv = np.array([48, 30], np.int32)
+    ptoks = rng.integers(0, cfg.vocab_size, (2, 48)).astype(np.int32)
+    jl, jnew = jax_prefill(jcfg, jparams, jnew, jnp.asarray(ptoks),
+                           jnp.asarray(ptables), jnp.asarray(plens),
+                           jnp.asarray(nv))
+    tl = paged_prefill_step(cfg, params, tpools, torch.from_numpy(ptoks),
+                            torch.from_numpy(ptables), torch.from_numpy(plens),
+                            torch.from_numpy(nv))
+    _close(tl, jl)
+    _check_pools(tpools, jnew)

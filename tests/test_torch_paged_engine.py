@@ -182,3 +182,49 @@ def test_params_on_another_device_raise():
     with pytest.raises(ValueError, match="params live on"):
         PagedServeEngine(CFG, {"embed": PARAMS["embed"].to("meta")},
                          device="cpu")
+
+
+# -- MoE: the reduced qwen3-moe-235b-a22b (4 experts, top-2) ----------------
+
+MOE = "qwen3-moe-235b-a22b"
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_models(dtype):
+    jcfg = dataclasses.replace(jax_get_config(MOE).reduced(), dtype=dtype)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(1))
+    cfg = dataclasses.replace(get_config(MOE).reduced(), dtype=dtype)
+    return jcfg, jparams, cfg, convert_params(
+        jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_engine_matches_reference(dtype):
+    """The MoE model through the paged engine on the shared-prefix trace
+    (32-row prefill chunks, so chunk capacity drops are the reference's
+    too): identical statuses, per-request ticks and run counters; float32
+    streams identical, bfloat16 streams under the near-tie rule."""
+    jcfg, jparams, cfg, params = _moe_models(dtype)
+    kw = dict(max_len=256, max_batch=4, page=PAGE)
+    jreqs = jax_get_trace("shared_prefix")(6, CFG.vocab_size, seed=1,
+                                           prefix_len=128)
+    reqs = get_trace("shared_prefix")(6, CFG.vocab_size, seed=1,
+                                      prefix_len=128)
+    jres, jstats = JaxPagedServeEngine(jcfg, jparams, **kw).run(jreqs)
+    eng = PagedServeEngine(cfg, params, device="cpu", **kw)
+    res, stats = eng.run(reqs)
+    for f in _COUNTERS:
+        assert stats[f] == jstats[f], f
+    assert stats.prefix_hit_rate > 0
+    for i, (a, b) in enumerate(zip(jres, res)):
+        assert (b.status, b.admitted, b.finished, b.prefix_blocks,
+                len(b.tokens)) == (a.status, a.admitted, a.finished,
+                                   a.prefix_blocks, len(a.tokens)), i
+        assert b.status == OK
+    plain = PagedServeEngine(dataclasses.replace(cfg, use_kernels=False),
+                             params, max_len=256, page=PAGE, device="cpu")
+    div = divergences(plain, reqs, jres, res)
+    bad = [d for d in div if not d["near_tie"]]
+    assert not bad, f"streams diverge above the {NEAR_TIE} near-tie: {bad}"
+    if dtype == "float32":
+        assert not div, f"float32 greedy streams differ: {div}"
