@@ -56,7 +56,37 @@ Phases (any failure exits non-zero and prints no result line):
    checks on a decode step of 8 x 512-token prompts and on the streams
    (the two engines are not compared on MoE: capacity depends on each
    step's length, so they compute different functions);
-10. MoE profile: a paged decode tick and a sync B = 8 decode step.
+10. MoE profile: a paged decode tick and a sync B = 8 decode step;
+11. SSD kernel check: qwen3-moe is freed, and ``mamba2_ssd`` is held to
+    its plain version at mamba2-370m's full width (32 heads of 64, d_state
+    128) over a 2048-row prefill and a ragged 2000-row one, and at
+    jamba's (128 heads of 64, d_state 16) over 2000 rows, output and
+    final state, and timed beside its plain version and its bound;
+12. SSM sync serve: full-width, full-depth mamba2-370m (48 SSM layers,
+    random bf16 weights from a seed) through ``ServeEngine(max_len=2048)``:
+    prompts of 2000, 1537, 1024 and 517 tokens one at a time, then one
+    batch of 4 equal 1024-token prompts, 16 greedy tokens each;
+    ``mamba2_ssd`` launched 2 x 48 x prefills (the layer's output and the
+    state it hands to decode).  Then the precision checks, in two types:
+    48 random-weight SSM layers amplify rounding so far that the plain
+    path's own bf16 logits lie ~30% from its float32 ones, past any
+    limit meant for rounding.  So in bf16 one prefill's and one decode
+    step's logits are held to the float32 yardstick of 3 only (the
+    kernel path no further from float32 than 1.5x the plain path), and
+    the state handoff and the streams are printed; in float32 (the same
+    weights upcast) the prefill and decode-step logits are held within
+    2e-2 of the plain path, the state handoff (a decode step after a
+    prefill of S - 1 tokens against ``forward``'s logits at S) within
+    3e-2 as the reference's own test, and the streams of ``run(batch=1)``
+    to the plain path's up to near-ties;
+13. SSM profile: a mamba2 B = 1 decode step and a 2048-row prefill;
+14. hybrid sync serve: jamba-v0.1-52b at full width cut in depth to one
+    8-layer period (7 SSM layers, attention at index 4, 4 MoE and 4
+    dense FFNs; random bf16 weights, ~26.5 GB) serves prompts of 2000 and
+    517 tokens; ``mamba2_ssd`` 2 x 7 x prefills, flash 1 x prefills,
+    decode 1 x decode steps, ``moe_gmm`` 3 x 4 x (prefills + decode
+    steps); a decode step of 8 x 512-token prompts and the streams held
+    to the plain path by the MoE rules of 9.
 
 The second-to-last line is a JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  It needs one GPU, ``nvcc`` (under
@@ -95,6 +125,19 @@ MOE_SYNC = dict(max_len=2048, prompts=(2000, 517), n_steps=16,
 # this on the plain path may route differently under the kernel path's
 # rounding: a routing near-tie (repro_torch.serve.parity)
 ROUTING_MARGIN = 1e-3
+# mamba2-370m at full width and depth: ~0.37 B params, ~0.74 GB in bf16
+SSM = dict(arch="mamba2-370m", seed=3)
+SSM_SYNC = dict(max_len=2048, prompts=(2000, 1537, 1024, 517), n_steps=16,
+                batch=4, batch_len=1024, seed=4)
+# jamba-v0.1-52b at full width, cut from 32 layers to one 8-layer period
+# (~13.3 B params, ~26.5 GB in bf16; all 32 layers, ~103 GB, do not fit
+# one 80 GB card)
+HYBRID = dict(arch="jamba-v0.1-52b", n_layers=8, seed=5)
+HYBRID_SYNC = dict(max_len=2048, prompts=(2000, 517), n_steps=16,
+                   check_batch=(8, 512), seed=6)
+# the reference's limit for the prefill -> decode state handoff of its
+# bf16 SSM model (tests/test_arch_smoke.py)
+HANDOFF_TOL = 3e-2
 
 
 class Failure(Exception):
@@ -495,16 +538,22 @@ def prefilled_slots(eng, reqs):
     return pend, tables, lens
 
 
-def logit_check(torch, label: str, cfg, plain_cfg, params, state, step):
-    """One decode step on identical copies of ``state`` (a pool or cache
-    pytree) through the kernel path, the plain path, and the plain path
-    in float32 (weights and state upcast) as the yardstick of what bf16
-    rounding alone costs; ``step(cfg, params, state)`` returns the
-    logits.  Relative error is ||a - b|| / ||b|| over all logits."""
+def logit_check(torch, label: str, cfg, plain_cfg, params, state, step, *,
+                limit=LOGIT_REL_TOL, yardstick: bool = True):
+    """One step on identical copies of ``state`` (a pool or cache pytree)
+    through the kernel path and the plain path; ``step(cfg, params,
+    state)`` returns the logits.  Relative error is ||a - b|| / ||b||
+    over all logits, held below ``limit`` (None: printed only).  With
+    ``yardstick`` the plain path also runs in float32 (weights and state
+    upcast), the yardstick of what the working type's rounding alone
+    costs, and the kernel path may be no further from it than 1.5x the
+    plain path."""
     from repro_torch.models.layers import DTYPES
     out = {}
-    f32_cfg = dataclasses.replace(plain_cfg, dtype="float32")
-    for name, c in (("kernel", cfg), ("plain", plain_cfg), ("f32", f32_cfg)):
+    runs = [("kernel", cfg), ("plain", plain_cfg)]
+    if yardstick:
+        runs.append(("f32", dataclasses.replace(plain_cfg, dtype="float32")))
+    for name, c in runs:
         st = _map(lambda t: t.clone().to(DTYPES[c.dtype]), state)
         p = params if c.dtype == cfg.dtype else _map(
             lambda t: t.to(DTYPES[c.dtype]), params)
@@ -516,17 +565,42 @@ def logit_check(torch, label: str, cfg, plain_cfg, params, state, step):
     def rel(a, b):
         return float((out[a] - out[b]).norm() / out[b].norm())
 
-    r, rk, rp = rel("kernel", "plain"), rel("kernel", "f32"), rel("plain", "f32")
+    r = rel("kernel", "plain")
     r_max = float((out["kernel"] - out["plain"]).abs().max()
                   / out["plain"].abs().max())
-    print(f"{label} logits on identical state: kernel vs plain path "
-          f"relative error {r:.3g} (limit {LOGIT_REL_TOL}; max-abs ratio "
-          f"{r_max:.3g}); against float32: kernel path {rk:.3g}, plain path "
-          f"{rp:.3g}")
-    check(r < LOGIT_REL_TOL, f"{label} logits: kernel vs plain path "
-          f"relative error {r:.3g} >= {LOGIT_REL_TOL}")
-    check(rk <= 1.5 * rp, f"{label}: the kernel path is further from "
-          f"float32 ({rk:.3g}) than 1.5x the plain path ({rp:.3g})")
+    msg = (f"{label} logits ({cfg.dtype}) on identical state: kernel vs "
+           f"plain path relative error {r:.3g} (limit {limit}; max-abs ratio "
+           f"{r_max:.3g})")
+    if yardstick:
+        rk, rp = rel("kernel", "f32"), rel("plain", "f32")
+        msg += f"; against float32: kernel path {rk:.3g}, plain path {rp:.3g}"
+    print(msg)
+    if limit is not None:
+        check(r < limit, f"{label} logits: kernel vs plain path relative "
+              f"error {r:.3g} >= {limit}")
+    if yardstick:
+        check(rk <= 1.5 * rp, f"{label}: the kernel path is further from "
+              f"float32 ({rk:.3g}) than 1.5x the plain path ({rp:.3g})")
+
+
+def streams_check(torch, eng, plain, reqs, results, *, enforce=True):
+    """Greedy streams of ``eng`` against ``plain``'s replay of ``reqs``:
+    each may first differ only at a near-tie (``enforce``; else the
+    divergences are printed only)."""
+    from repro_torch.serve.parity import NEAR_TIE, divergences
+    p_results, _ = plain.run(reqs)
+    div = divergences(plain, reqs, p_results, results)
+    for d in div:
+        print(f"request {d['request']}: kernel and plain paths diverge at "
+              f"step {d['step']}, plain top-2 margin {d['margin']}")
+    n_tie = sum(d["near_tie"] for d in div)
+    print(f"greedy tokens ({eng.cfg.dtype}): {len(reqs) - len(div)}/"
+          f"{len(reqs)} requests identical to the plain path, {n_tie} "
+          f"diverge at near-ties (top-2 margin < {NEAR_TIE}), "
+          f"{len(div) - n_tie} above")
+    if enforce:
+        check(n_tie == len(div), f"greedy streams diverge above the "
+              f"{NEAR_TIE} near-tie margin")
 
 
 def paged_logit_check(torch, cfg, plain_cfg, params, reqs):
@@ -559,7 +633,6 @@ def phase_sync_serve(torch, cfg, params):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import decode_step
     from repro_torch.serve import ServeEngine
-    from repro_torch.serve.parity import NEAR_TIE, divergences
 
     eng = ServeEngine(cfg, params, max_len=SYNC["max_len"], device="cuda")
     eng.generate(np.arange(16, dtype=np.int32)[None], n_steps=2)   # warm-up
@@ -575,11 +648,7 @@ def phase_sync_serve(torch, cfg, params):
     launches = dict(launch_counts())
     prefills = len(reqs) + 1
     steps = stats.decode_steps + gen.steps
-    for name, per, n in (("flash_attention", "prefills", prefills),
-                         ("decode_attention", "decode steps", steps)):
-        want = cfg.n_layers * n
-        check(launches[name] == want, f"{name} launched {launches[name]} "
-              f"times, want n_layers x {per} = {want}")
+    check_sync_launches(cfg, launches, prefills, steps)
     for r in results:
         check(len(r.tokens) == SYNC["n_steps"], f"{len(r.tokens)} tokens")
     for toks in [r.tokens for r in results] + [gen.tokens]:
@@ -606,17 +675,9 @@ def phase_sync_serve(torch, cfg, params):
                                              prompt.shape[1])[0])
     del cache
 
-    plain = ServeEngine(plain_cfg, params, max_len=SYNC["max_len"],
-                        device="cuda")
-    p_results, _ = plain.run(reqs)
-    div = divergences(plain, reqs, p_results, results)
-    for d in div:
-        print(f"request {d['request']}: kernel and plain paths diverge at "
-              f"step {d['step']}, plain top-2 margin {d['margin']}")
-    check(all(d["near_tie"] for d in div),
-          f"greedy streams diverge above the {NEAR_TIE} near-tie margin")
-    print(f"greedy tokens: {len(reqs) - len(div)}/{len(reqs)} requests "
-          f"identical to the plain path, the rest diverge at near-ties")
+    streams_check(torch, eng, ServeEngine(
+        plain_cfg, params, max_len=SYNC["max_len"], device="cuda"),
+        reqs, results)
     return launches
 
 
@@ -926,13 +987,7 @@ def phase_moe_sync(torch, cfg, params):
     wall = time.perf_counter() - t0
     launches = dict(launch_counts())
     L, prefills, steps = cfg.n_layers, len(reqs), stats.decode_steps
-    for name, want, per in (
-            ("flash_attention", L * prefills, "n_layers x prefills"),
-            ("decode_attention", L * steps, "n_layers x decode steps"),
-            ("moe_gmm", 3 * L * (prefills + steps),
-             "3 x n_layers x (prefills + decode steps)")):
-        check(launches[name] == want, f"{name} launched {launches[name]} "
-              f"times, want {per} = {want}")
+    check_sync_launches(cfg, launches, prefills, steps)
     for r in results:
         check(len(r.tokens) == MOE_SYNC["n_steps"], f"{len(r.tokens)} tokens")
         check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
@@ -984,6 +1039,311 @@ def phase_moe_profile(torch, cfg, params):
             lambda: sync.decode(cache, tok, pos).argmax(-1).cpu())
 
 
+# -- phase 11: the SSD scan ---------------------------------------------------
+
+def ssd_work(B: int, S: int, nh: int, hd: int, G: int, ds: int, chunk: int,
+             el: int):
+    """(bytes, flops) of one SSD scan: x, dt, A, B and C read once, y and
+    the f32 state written once (``el`` bytes per x, B, C and y element);
+    the products of the kernel's algorithm at its chunk, over causal
+    (i, j) pairs only and the scores once per group: per chunk of n rows
+    2 ds n(n+1)/2 per group, and 2 hd n(n+1)/2 + 2 n ds hd (y) + 2 n ds hd
+    (state) per head."""
+    nbytes = (2 * B * S * nh * hd + 2 * B * S * G * ds) * el \
+        + B * S * nh * 4 + nh * 4 + B * nh * hd * ds * 4
+    flops = 0
+    for t0 in range(0, S, chunk):
+        n = min(chunk, S - t0)
+        pairs = n * (n + 1) // 2
+        flops += B * (G * 2 * ds * pairs
+                      + nh * (2 * hd * pairs + 4 * n * ds * hd))
+    return nbytes, flops
+
+
+def ssd_record(torch):
+    """``mamba2_ssd`` at the serving path's shapes (B = 1, head dim 64,
+    one B/C group, bf16; dt a softplus, A the initial -1..-16): mamba2's
+    32 heads with d_state 128 over a 2048-row prefill (timed) and a
+    ragged 2000-row one, jamba's 128 heads with d_state 16 over 2000 rows
+    (timed).  Output and final state are held to the plain version."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import mamba2_ssd, mamba2_ssd_plain
+    from repro_torch.kernels.mamba2_ssd import CHUNK
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cases = {"mamba2 prefill S=2048": (2048, 32, 128, True),
+             "mamba2 ragged S=2000": (2000, 32, 128, False),
+             "jamba S=2000": (2000, 128, 16, True)}
+    flush = l2_flush(torch)
+    record, max_abs_err = None, 0.0
+    for label, (S, nh, ds, timed) in cases.items():
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device="cuda")
+        x = (randn(1, S, nh, 64) * 0.5).to(torch.bfloat16)
+        dt = F.softplus(randn(1, S, nh))
+        A = -torch.linspace(1.0, 16.0, nh, device="cuda")
+        Bm = (randn(1, S, 1, ds) * 0.5).to(torch.bfloat16)
+        Cm = (randn(1, S, 1, ds) * 0.5).to(torch.bfloat16)
+        y, h = mamba2_ssd(x, dt, A, Bm, Cm)
+        torch.cuda.synchronize()
+        want_y, want_h = mamba2_ssd_plain(x, dt, A, Bm, Cm)
+        err = max(held_to_plain(torch, f"mamba2_ssd y ({label})", y, want_y),
+                  held_to_plain(torch, f"mamba2_ssd state ({label})", h,
+                                want_h))
+        max_abs_err = max(max_abs_err, err)
+        msg = (f"mamba2_ssd {label}: nh={nh} hd=64 ds={ds} G=1 bf16: max abs "
+               f"err {err:.3g} (y up to {float(want_y.float().abs().max()):.3g})")
+        if timed:
+            ms = time_ms(torch, lambda: mamba2_ssd(x, dt, A, Bm, Cm), 20,
+                         flush)
+            plain_ms = time_ms(torch, lambda: mamba2_ssd_plain(
+                x, dt, A, Bm, Cm), 5, flush)
+            nbytes, flops = ssd_work(1, S, nh, 64, 1, ds, CHUNK, 2)
+            bound_ms, bound_by = bound(nbytes, flops)
+            msg += (f"; kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s, "
+                    f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} "
+                    f"ms, no library call, bound {bound_ms:.5f} ms "
+                    f"({bound_by}: {nbytes} bytes, {flops} flops at chunk "
+                    f"{CHUNK})")
+            if record is None:              # mamba2's prefill shape
+                record = {"name": "mamba2_ssd", "route": "cuda",
+                          "source": "src/repro_torch/csrc/mamba2_ssd.cu",
+                          "replaces": "src/repro/kernels/mamba2_ssd.py:75",
+                          "launches": None, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": None}
+        print(msg)
+        del x, dt, Bm, Cm, y, h, want_y, want_h
+    torch.cuda.empty_cache()
+    record["max_abs_err"] = max_abs_err
+    return record
+
+
+# -- phases 12-14: mamba2-370m and jamba-v0.1-52b through the sync engine ----
+
+def n_ssm_layers(cfg) -> int:
+    return sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.n_layers))
+
+
+def check_sync_launches(cfg, launches, prefills: int, steps: int) -> None:
+    """The sync engine's launch counts: ``mamba2_ssd`` twice per SSM layer
+    per prefill, flash once per attention layer per prefill, decode once
+    per attention layer per decode step, ``moe_gmm`` three times per MoE
+    layer per step."""
+    n_ssm = n_ssm_layers(cfg)
+    n_attn = cfg.n_layers - n_ssm
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    for name, want, per in (
+            ("mamba2_ssd", 2 * n_ssm * prefills,
+             f"2 x {n_ssm} SSM layers x {prefills} prefills"),
+            ("flash_attention", n_attn * prefills,
+             f"{n_attn} attention layers x {prefills} prefills"),
+            ("decode_attention", n_attn * steps,
+             f"{n_attn} attention layers x {steps} decode steps"),
+            ("moe_gmm", 3 * n_moe * (prefills + steps),
+             f"3 x {n_moe} MoE layers x {prefills + steps} steps")):
+        check(launches[name] == want, f"{name} launched {launches[name]} "
+              f"times, want {per} = {want}")
+
+
+def handoff_check(torch, cfg, params, prompt, *, limit=HANDOFF_TOL):
+    """State handoff on the kernel path: ``decode_step`` of token S - 1
+    after ``prefill`` of the first S - 1 tokens against ``forward``'s
+    logits at S, elementwise within ``limit`` + ``limit`` |x| (None:
+    printed only); the plain path's handoff error is printed beside it."""
+    from repro_torch.models import decode_step, forward, prefill
+    S = prompt.shape[0]
+    toks = torch.tensor(prompt[None], dtype=torch.int32, device="cuda")
+    errs = {}
+    for name, c in (("kernel", cfg),
+                    ("plain", dataclasses.replace(cfg, use_kernels=False))):
+        full = forward(c, params, {"tokens": toks}, mode="train")[0][:, -1]
+        _, cache = prefill(c, params, {"tokens": toks[:, :-1]}, max_len=S)
+        step = decode_step(c, params, cache, toks[:, -1:], S - 1)[0][:, 0]
+        tol = 0.0 if limit is None else limit
+        bad = (step - full).abs() > tol + tol * full.abs()
+        errs[name] = (float((step - full).norm() / full.norm()),
+                      float((step - full).abs().max()), int(bad.sum()))
+        del full, cache, step
+    print(f"state handoff ({cfg.dtype}) at S={S}, decode after a prefill of "
+          f"S-1 against forward: kernel path relative error "
+          f"{errs['kernel'][0]:.3g}, max abs {errs['kernel'][1]:.3g}; plain "
+          f"path {errs['plain'][0]:.3g}, {errs['plain'][1]:.3g} (limit "
+          f"{limit} + {limit} |x|)")
+    if limit is not None:
+        check(errs["kernel"][2] == 0, f"state handoff: {errs['kernel'][2]} "
+              f"logits outside {limit} + {limit} |x|")
+
+
+def phase_ssm_sync(torch, cfg, params):
+    """mamba2-370m through the sync engine: the run, launch counts,
+    prefill and decode-step logits, the state handoff and the streams."""
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, max_len=SSM_SYNC["max_len"], device="cuda")
+    eng.generate(np.arange(16, dtype=np.int32)[None], n_steps=2)   # warm-up
+    rng = np.random.default_rng(SSM_SYNC["seed"])
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, s)
+                    .astype(np.int32), n_steps=SSM_SYNC["n_steps"])
+            for s in SSM_SYNC["prompts"]]
+    batch = rng.integers(0, cfg.vocab_size, (SSM_SYNC["batch"],
+                                             SSM_SYNC["batch_len"])
+                         ).astype(np.int32)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, stats = eng.run(reqs)
+    t1 = time.perf_counter()
+    gen = eng.generate(batch, n_steps=SSM_SYNC["n_steps"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(launch_counts())
+    prefills = len(reqs) + 1
+    steps = stats.decode_steps + gen.steps
+    check_sync_launches(cfg, launches, prefills, steps)
+    for r in results:
+        check(len(r.tokens) == SSM_SYNC["n_steps"], f"{len(r.tokens)} tokens")
+    check(gen.tokens.shape == (SSM_SYNC["batch"], SSM_SYNC["n_steps"]),
+          f"generate returned {gen.tokens.shape}")
+    for toks in [r.tokens for r in results] + [gen.tokens]:
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              "token out of vocabulary range")
+    n_run = sum(len(r.tokens) for r in results)
+    print(f"ServeEngine {cfg.name} bf16, max_len {SSM_SYNC['max_len']}: "
+          f"run(batch=1) of prompts {list(SSM_SYNC['prompts'])} x "
+          f"{SSM_SYNC['n_steps']} greedy tokens in {t1 - t0:.3f} s "
+          f"({n_run / (t1 - t0):.1f} tok/s); generate of {SSM_SYNC['batch']}"
+          f" x {SSM_SYNC['batch_len']}-token prompts x {SSM_SYNC['n_steps']} "
+          f"tokens in {t2 - t1:.3f} s ({gen.tokens.size / (t2 - t1):.1f} "
+          f"tok/s); {prefills} prefills, {steps} decode steps, launches "
+          f"{launches}")
+
+    # bf16: 48 random-weight SSM layers amplify rounding far past the
+    # 2e-2 logit, 3e-2 handoff and 0.05 near-tie limits (the plain path's
+    # own bf16 logits lie ~30% from its float32 ones), so in bf16 the
+    # kernel path is held to the float32 yardstick only; the limits hold
+    # the same model in float32 (weights upcast, ~1.5 GB), where the
+    # kernel and plain paths differ by f32 rounding
+    prompt = reqs[0].prompt[None]
+    toks = torch.tensor(prompt, dtype=torch.int32, device="cuda")
+    p32 = _map(lambda t: t.float(), params)
+    for c, p, limit in ((cfg, params, None),
+                        (dataclasses.replace(cfg, dtype="float32"), p32,
+                         LOGIT_REL_TOL)):
+        plain_c = dataclasses.replace(c, use_kernels=False)
+        e = ServeEngine(c, p, max_len=SSM_SYNC["max_len"], device="cuda")
+        logit_check(torch, f"sync prefill of {prompt.shape[1]} tokens", c,
+                    plain_c, p, {},
+                    lambda cc, pp, _: prefill(cc, pp, {"tokens": toks},
+                                              SSM_SYNC["max_len"])[0],
+                    limit=limit, yardstick=limit is None)
+        logits, cache = e.prefill(prompt)
+        tok = logits.argmax(-1)[:, None]
+        logit_check(torch, f"sync decode step at position {prompt.shape[1]}",
+                    c, plain_c, p, cache,
+                    lambda cc, pp, st: decode_step(cc, pp, st, tok,
+                                                   prompt.shape[1])[0],
+                    limit=limit, yardstick=limit is None)
+        del cache
+        handoff_check(torch, c, p, reqs[1].prompt,
+                      limit=None if limit is None else HANDOFF_TOL)
+        if limit is None:
+            streams_check(torch, eng, ServeEngine(
+                plain_c, p, max_len=SSM_SYNC["max_len"], device="cuda"),
+                reqs, results, enforce=False)
+        else:
+            results32, _ = e.run(reqs)
+            streams_check(torch, e, ServeEngine(
+                plain_c, p, max_len=SSM_SYNC["max_len"], device="cuda"),
+                reqs, results32)
+        del e
+    del p32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hybrid_sync(torch, cfg, params):
+    """jamba (one period) through the sync engine: the run, launch counts,
+    a decode step's logits and routing, and the streams."""
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, max_len=HYBRID_SYNC["max_len"],
+                      device="cuda")
+    eng.generate(np.arange(16, dtype=np.int32)[None], n_steps=2)   # warm-up
+    rng = np.random.default_rng(HYBRID_SYNC["seed"])
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, s)
+                    .astype(np.int32), n_steps=HYBRID_SYNC["n_steps"])
+            for s in HYBRID_SYNC["prompts"]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts())
+    check_sync_launches(cfg, launches, len(reqs), stats.decode_steps)
+    for r in results:
+        check(len(r.tokens) == HYBRID_SYNC["n_steps"],
+              f"{len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              "token out of vocabulary range")
+    n_run = sum(len(r.tokens) for r in results)
+    print(f"ServeEngine {cfg.name} ({cfg.n_layers} layers) bf16, max_len "
+          f"{HYBRID_SYNC['max_len']}: run(batch=1) of prompts "
+          f"{list(HYBRID_SYNC['prompts'])} x {HYBRID_SYNC['n_steps']} greedy "
+          f"tokens in {wall:.3f} s ({n_run / wall:.1f} tok/s); {len(reqs)} "
+          f"prefills, {stats.decode_steps} decode steps, launches {launches}")
+
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    batch = rng.integers(0, cfg.vocab_size, HYBRID_SYNC["check_batch"]
+                         ).astype(np.int32)
+    logits, cache = eng.prefill(batch)
+    tok = logits.argmax(-1)[:, None]
+    pos = batch.shape[1]
+    routing = moe_logit_check(
+        torch, f"hybrid sync decode step (B={batch.shape[0]}, position "
+               f"{pos})", cfg, plain_cfg, params, cache,
+        lambda c, p, cc: decode_step(c, p, cc, tok, pos)[0])
+    del cache
+    plain = ServeEngine(plain_cfg, params, max_len=HYBRID_SYNC["max_len"],
+                        device="cuda")
+    p_results, _ = plain.run(reqs)
+    moe_streams_check(eng, plain, reqs, p_results, results)
+    return launches, routing
+
+
+def phase_ssm_profile(torch, cfg, params):
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, max_len=SSM_SYNC["max_len"], device="cuda")
+    rng = np.random.default_rng(SSM_SYNC["seed"] + 1)
+    prompt = rng.integers(0, cfg.vocab_size, (1, SSM_SYNC["max_len"])
+                          ).astype(np.int32)
+    profile(torch, f"{cfg.name} sync prefill ({SSM_SYNC['max_len']} rows)",
+            lambda: eng.prefill(prompt)[0].argmax(-1).cpu())
+    logits, cache = eng.prefill(prompt[:, :1024])
+    tok = logits.argmax(-1)[:, None]
+    profile(torch, f"{cfg.name} sync decode step (B=1, position 1024)",
+            lambda: eng.decode(cache, tok, 1024).argmax(-1).cpu())
+
+
+def draw_params(torch, cfg, seed: int, what: str):
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{what}: {n_params / 1e9:.2f} B params ({cfg.dtype}, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB) drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
 def main() -> int:
     try:
         import torch
@@ -1004,21 +1364,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
 
     t_start = time.perf_counter()
     try:
         resolve_device("cuda")
         card = phase_setup(torch)
         cfg = get_config(SERVE["arch"])
-        t0 = time.perf_counter()
-        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-            SERVE["seed"]), device="cuda")
-        torch.cuda.synchronize()
-        n_params = sum(t.numel() for t in _leaves(params))
-        print(f"{cfg.name} full width: {cfg.n_layers} layers, "
-              f"{n_params / 1e9:.2f} B params ({cfg.dtype}) drawn on the "
-              f"card in {time.perf_counter() - t0:.1f} s")
+        params = draw_params(torch, cfg, SERVE["seed"],
+                             f"{cfg.name} full width, {cfg.n_layers} layers")
         probe = new_engine(cfg, params)
         paged = phase_kernels(torch, cfg, probe.page, probe.nb_table)
         del probe
@@ -1040,20 +1393,15 @@ def main() -> int:
         moe_cfg = dataclasses.replace(full, n_layers=MOE["n_layers"])
         moe = moe_gmm_record(torch, moe_cfg)
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = init_params(moe_cfg, torch.Generator(
-            device="cuda").manual_seed(MOE["seed"]), device="cuda")
-        torch.cuda.synchronize()
-        n_params = sum(t.numel() for t in _leaves(params))
-        print(f"{moe_cfg.name} full width (d_model {moe_cfg.d_model}, "
-              f"{moe_cfg.n_heads} query heads over {moe_cfg.n_kv_heads} KV "
-              f"heads of {moe_cfg.hd}, {moe_cfg.moe.n_experts} experts top-"
-              f"{moe_cfg.moe.top_k} of width {moe_cfg.moe.d_ff_expert}, vocab "
-              f"{moe_cfg.vocab_size}) cut in depth from {full.n_layers} to "
-              f"{moe_cfg.n_layers} layers (dataclasses.replace(cfg, "
-              f"n_layers={MOE['n_layers']})): {n_params / 1e9:.2f} B params "
-              f"({moe_cfg.dtype}, {torch.cuda.memory_allocated() / 2**30:.2f}"
-              f" GiB) drawn on the card in {time.perf_counter() - t0:.1f} s")
+        params = draw_params(
+            torch, moe_cfg, MOE["seed"],
+            f"{moe_cfg.name} full width (d_model {moe_cfg.d_model}, "
+            f"{moe_cfg.n_heads} query heads over {moe_cfg.n_kv_heads} KV "
+            f"heads of {moe_cfg.hd}, {moe_cfg.moe.n_experts} experts top-"
+            f"{moe_cfg.moe.top_k} of width {moe_cfg.moe.d_ff_expert}, vocab "
+            f"{moe_cfg.vocab_size}) cut in depth from {full.n_layers} to "
+            f"{moe_cfg.n_layers} layers (dataclasses.replace(cfg, "
+            f"n_layers={MOE['n_layers']}))")
         launches, routing = phase_moe_serve(torch, moe_cfg, params)
         moe_launches = launches["moe_gmm"]
         launches, routing_sync = phase_moe_sync(torch, moe_cfg, params)
@@ -1062,12 +1410,49 @@ def main() -> int:
         print(f"MoE phases: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; routing "
               f"flips (paged tick, sync step): {routing}, {routing_sync}")
+        del params
+        torch.cuda.empty_cache()
+
+        ssd = ssd_record(torch)
+        ssm_cfg = get_config(SSM["arch"])
+        params = draw_params(
+            torch, ssm_cfg, SSM["seed"],
+            f"{ssm_cfg.name} full width and depth ({ssm_cfg.n_layers} SSM "
+            f"layers, d_model {ssm_cfg.d_model}, "
+            f"{2 * ssm_cfg.d_model // ssm_cfg.ssm.head_dim} heads of "
+            f"{ssm_cfg.ssm.head_dim}, d_state {ssm_cfg.ssm.d_state}, vocab "
+            f"{ssm_cfg.vocab_size}, tied embeddings)")
+        launches = phase_ssm_sync(torch, ssm_cfg, params)
+        ssd_launches = launches["mamba2_ssd"]
+        phase_ssm_profile(torch, ssm_cfg, params)
+        del params
+        torch.cuda.empty_cache()
+
+        full = get_config(HYBRID["arch"])
+        hyb_cfg = dataclasses.replace(full, n_layers=HYBRID["n_layers"])
+        torch.cuda.reset_peak_memory_stats()
+        params = draw_params(
+            torch, hyb_cfg, HYBRID["seed"],
+            f"{hyb_cfg.name} full width (d_model {hyb_cfg.d_model}, "
+            f"{hyb_cfg.n_heads} query heads over {hyb_cfg.n_kv_heads} KV heads "
+            f"of {hyb_cfg.hd}, {hyb_cfg.moe.n_experts} experts top-"
+            f"{hyb_cfg.moe.top_k} of width {hyb_cfg.moe.d_ff_expert}, SSM "
+            f"d_state {hyb_cfg.ssm.d_state}, vocab {hyb_cfg.vocab_size}) cut "
+            f"in depth from {full.n_layers} to {hyb_cfg.n_layers} layers "
+            f"(dataclasses.replace(cfg, n_layers={HYBRID['n_layers']}); "
+            f"{n_ssm_layers(hyb_cfg)} SSM layers, attention at "
+            f"{[i for i in range(hyb_cfg.n_layers) if hyb_cfg.layer_kind(i) == 'attn']})")
+        launches, routing_hyb = phase_hybrid_sync(torch, hyb_cfg, params)
+        ssd["launches"] = ssd_launches + launches["mamba2_ssd"]
+        print(f"hybrid phase: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; routing "
+              f"flips (sync step): {routing_hyb}")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [paged, flash, decode, moe]}))
+    print(json.dumps({"kernels": [paged, flash, decode, moe, ssd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

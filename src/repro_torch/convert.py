@@ -10,7 +10,9 @@ rest as a tuple of per-slot stacks ``layers``, each leaf with a leading
 ``first_k + p * period + s``).  The port keeps one dict per layer, in
 global order.  The reference's decode cache (``repro.models.init_cache``
 and ``prefill``) has the same ``layers0`` / stacked ``layers`` layout;
-the port's is a list with one ``{"k", "v"}`` dict per layer.  bfloat16
+the port's is a list with one dict per layer: ``{"k", "v"}`` for an
+attention layer, ``{"conv", "state"}`` for an SSM layer (a hybrid such
+as jamba stacks both kinds, one per slot of its period).  bfloat16
 leaves (numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.
 """
 
@@ -58,8 +60,10 @@ def convert_cache(np_cache: Dict, *,
                   device: Union[str, torch.device, None] = "cuda"
                   ) -> List[Dict]:
     """The port's per-layer decode cache from the reference's numpy one,
-    ``{"layers0": [...], "layers": (per-slot stacks,)}`` with leaves of
-    shape (n_periods, B, T, KV, hd) in the stacks."""
+    ``{"layers0": [...], "layers": (per-slot stacks,)}`` whose stacked
+    leaves carry a leading n_periods axis: (n_periods, B, T, KV, hd) K/V
+    of an attention slot, (n_periods, B, d_conv - 1, conv_dim) conv
+    windows and (n_periods, B, nh, hd, ds) states of an SSM slot."""
     return _unstack(np_cache, resolve_device(device))
 
 

@@ -3,9 +3,9 @@ and oracles.
 
 Ported so far (CUDA C++, ``csrc/``): ``flash_attention`` (prefill),
 ``decode_attention`` (contiguous-cache decode),
-``paged_decode_attention`` (paged decode) and ``moe_gmm`` (the MoE
-expert products).  The reference's other Pallas kernels are still to
-port (ROADMAP queue 2).
+``paged_decode_attention`` (paged decode), ``moe_gmm`` (the MoE expert
+products) and ``mamba2_ssd`` (the SSM layers' chunked scan).  The
+reference's ``mfma_gemm`` is still to port (ROADMAP queue 2).
 """
 
 from typing import Dict
@@ -15,15 +15,19 @@ from repro_torch.kernels.decode_attention import (  # noqa: F401
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     LAUNCHES as _FLASH_LAUNCHES, flash_attention, flash_attention_plain)
+from repro_torch.kernels.mamba2_ssd import (  # noqa: F401
+    LAUNCHES as _SSD_LAUNCHES, mamba2_ssd, mamba2_ssd_plain)
 from repro_torch.kernels.moe_gmm import (  # noqa: F401
     LAUNCHES as _MOE_GMM_LAUNCHES, moe_gmm, moe_gmm_plain)
 
 __all__ = ["flash_attention", "flash_attention_plain", "decode_attention",
            "decode_attention_plain", "paged_decode_attention",
            "paged_decode_attention_plain", "moe_gmm", "moe_gmm_plain",
-           "launch_counts", "reset_launch_counts"]
+           "mamba2_ssd", "mamba2_ssd_plain", "launch_counts",
+           "reset_launch_counts"]
 
-_COUNTERS = (_FLASH_LAUNCHES, _DECODE_LAUNCHES, _MOE_GMM_LAUNCHES)
+_COUNTERS = (_FLASH_LAUNCHES, _DECODE_LAUNCHES, _MOE_GMM_LAUNCHES,
+             _SSD_LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,7 +1,8 @@
 """Plain oracles for the port's kernels (twin of ``repro.kernels.ref``).
 
 Each oracle is the most obviously correct formulation (full softmax over
-a dense cache), deliberately not the blocked algorithm the kernels use,
+a dense cache, the SSM recurrence one step at a time), deliberately not
+the blocked or chunked algorithm the kernels use,
 so agreement checks the algebra and not just the implementation.
 """
 
@@ -12,7 +13,7 @@ import math
 import torch
 
 __all__ = ["flash_attention_ref", "decode_attention_ref",
-           "paged_decode_attention_ref", "moe_gmm_ref"]
+           "paged_decode_attention_ref", "moe_gmm_ref", "mamba2_ssd_ref"]
 
 
 def _grouped_full_attn(q, k, v, *, causal, kv_len=None):
@@ -65,3 +66,26 @@ def moe_gmm_ref(x, w):
     """(E, C, K) @ (E, K, N) -> (E, C, N), f32 accumulation."""
     y = torch.einsum("eck,ekn->ecn", x.float(), w.float())
     return y.to(x.dtype)
+
+
+def mamba2_ssd_ref(x, dt, A, Bm, Cm):
+    """Per-time-step SSM recurrence (sequential oracle; no chunking).
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t * B_t (x) x_t ;  y_t = C_t . h_t
+    x (B,S,nh,hd); dt (B,S,nh); A (nh,); Bm/Cm (B,S,G,ds).
+    Returns (y (B,S,nh,hd) in x's dtype, h_final (B,nh,hd,ds) f32).
+    """
+    B, S, nh, hd = x.shape
+    G, ds = Bm.shape[2], Bm.shape[3]
+    hpg = nh // G
+    h = torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        bt = Bm[:, t].repeat_interleave(hpg, dim=1).float()   # (B,nh,ds)
+        ct = Cm[:, t].repeat_interleave(hpg, dim=1).float()
+        dtt = dt[:, t].float()                                # (B,nh)
+        da = torch.exp(dtt * A.float())
+        h = da[..., None, None] * h + torch.einsum(
+            "bhp,bhs->bhps", dtt[..., None] * x[:, t].float(), bt)
+        ys.append(torch.einsum("bhs,bhps->bhp", ct, h))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -3,11 +3,14 @@
 A layer signature ``(mixer, is_moe)`` classifies every layer, as in the
 reference.  Every block is pre-norm with residuals:
 ``h += mixer(norm(h)); h += ffn(norm(h))``, the FFN a dense MLP or, for
-an MoE signature, :func:`repro_torch.models.moe.moe_apply`.  Only plain
-GQA attention is ported as the mixer, in the reference's three modes
-(:func:`apply_layer`: train, prefill, decode against a contiguous cache)
-and the two paged steps; other layer kinds raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+an MoE signature, :func:`repro_torch.models.moe.moe_apply`; a block
+without FFN (mamba2, ``d_ff = 0``) is the mixer alone.  Two mixers are
+ported: plain GQA attention and the Mamba-2 SSM
+(:mod:`repro_torch.models.ssm`), each in the reference's three modes
+(:func:`apply_layer`: train, prefill, decode against the sync engine's
+cache), so hybrid schedules such as jamba's mix them layer by layer.
+Only attention layers page (the two paged steps); other layer kinds
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import cdtype, mlp_apply, norm_apply
+from repro_torch.models.layers import cdtype, mlp_apply, mm, norm_apply
 from repro_torch.models.moe import init_moe, moe_apply
 
 __all__ = ["Sig", "layer_sigs", "schedule", "init_norm", "init_mlp",
@@ -29,7 +33,6 @@ __all__ = ["Sig", "layer_sigs", "schedule", "init_norm", "init_mlp",
 Sig = Tuple[str, bool]
 
 _NOT_PORTED = {
-    "ssm": "ROADMAP queue 1 item 9 (SSM and hybrid)",
     "cross": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
     "attn_cross": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
     "enc_attn": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
@@ -66,7 +69,7 @@ def check_ported(cfg: ModelConfig, sig: Sig) -> None:
     FFN, dense or MoE, is ported)."""
     mixer, _ = sig
     kind = "mla" if cfg.mla and mixer == "attn" else mixer
-    if kind != "attn":
+    if kind not in ("attn", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: layer kind {kind!r} is not ported to repro_torch "
             f"yet: {_NOT_PORTED.get(kind, 'not on the ROADMAP')}")
@@ -103,8 +106,9 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator,
 def init_layer(cfg: ModelConfig, gen: torch.Generator, sig: Sig,
                device: torch.device) -> Dict:
     check_ported(cfg, sig)
-    w: Dict = {"ln1": init_norm(cfg, device),
-               "mixer": attn.init_attn(cfg, gen, device)}
+    mixer = ssm_mod.init_ssm(cfg, gen, device) if sig[0] == "ssm" \
+        else attn.init_attn(cfg, gen, device)
+    w: Dict = {"ln1": init_norm(cfg, device), "mixer": mixer}
     if sig[1]:
         w["ln2"] = init_norm(cfg, device)
         w["ffn"] = init_moe(cfg, gen, device)
@@ -116,8 +120,11 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, sig: Sig,
 
 def init_layer_cache(cfg: ModelConfig, sig: Sig, batch: int, max_len: int,
                      *, device: Union[str, torch.device]) -> Dict:
-    """Zeroed decode cache of one layer: (batch, max_len, KV, hd) K/V."""
+    """Zeroed decode cache of one layer: (batch, max_len, KV, hd) K/V for
+    attention, the conv window and f32 state for an SSM layer."""
     check_ported(cfg, sig)
+    if sig[0] == "ssm":
+        return ssm_mod.init_ssm_cache(cfg, batch, device=device)
     return attn.init_attn_cache(cfg, batch, max_len, device=device)
 
 
@@ -137,6 +144,19 @@ def _attn_prefill_cache(cfg: ModelConfig, w, x: torch.Tensor,
     attention itself) and pad them to cache length."""
     _, k, v = attn._qkv(cfg, w, x, positions)
     return {"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len)}
+
+
+def _ssm_prefill_cache(cfg: ModelConfig, w, x: torch.Tensor) -> Dict:
+    """Re-run the SSD scan for the final state, and keep the last
+    d_conv - 1 pre-conv rows as the conv window (as the reference does;
+    the projection is a plain product rounded to x's dtype)."""
+    S = x.shape[1]
+    zxbcdt = mm(x, w["in_proj"], out_dtype=x.dtype)
+    _, xs, Bm, Cm, dtr = ssm_mod._split_proj(cfg, zxbcdt)
+    xbc_raw = torch.cat([xs, Bm, Cm], dim=-1)
+    _, _, h_final = ssm_mod._scan(cfg, w, xbc_raw, dtr)
+    return {"conv": xbc_raw[:, S - (cfg.ssm.d_conv - 1):].clone(),
+            "state": h_final}
 
 
 def _ffn(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor
@@ -163,27 +183,46 @@ def apply_layer(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor, *,
     * ``"train"``: returns (h, aux);
     * ``"prefill"``: returns (h, aux, cache), the cache padded to
       ``max_len``;
-    * ``"decode"``: returns (h, cache), h (B, 1, D); the new row is
-      written into ``cache`` in place at ``pos``.
+    * ``"decode"``: returns (h, cache), h (B, 1, D); the cache is
+      updated in place (attention writes its new row at ``pos``, an SSM
+      layer its conv window and state).
 
-    ``aux`` is the MoE balance loss of an MoE layer, a zero f32 scalar
-    for a dense one."""
+    An SSM layer's prefill cache is not padded: its conv window and
+    state do not grow with the sequence.  ``aux`` is the MoE balance
+    loss of an MoE layer, a zero f32 scalar otherwise."""
     check_ported(cfg, sig)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"apply_layer: unknown mode {mode!r}")
     x = norm_apply(cfg, w["ln1"], h)
     new_cache: Dict = {}
-    if mode == "decode":
+    if sig[0] == "ssm":
+        if mode == "decode":
+            y, new_cache = ssm_mod.ssm_decode(cfg, w["mixer"], x, cache, pos)
+        else:
+            y = ssm_mod.ssm_train(cfg, w["mixer"], x)
+            if mode == "prefill":
+                new_cache = _ssm_prefill_cache(cfg, w["mixer"], x)
+    elif mode == "decode":
         y, new_cache = attn.attn_decode(cfg, w["mixer"], x, cache, pos)
-    elif mode in ("train", "prefill"):
+    else:
         y = attn.attn_train(cfg, w["mixer"], x, positions)
         if mode == "prefill":
             new_cache = _attn_prefill_cache(cfg, w["mixer"], x, positions,
                                             max_len)
-    else:
-        raise ValueError(f"apply_layer: unknown mode {mode!r}")
     h, aux = _ffn(cfg, sig, w, h + y)
     if mode == "decode":
         return h, new_cache
     return (h, aux) if mode == "train" else (h, aux, new_cache)
+
+
+def _check_pages(cfg: ModelConfig, sig: Sig, where: str) -> None:
+    """Only plain GQA attention layers page: an SSM layer's state is O(1)
+    and needs no pages (``PagedKVCache`` rejects such configs up front)."""
+    check_ported(cfg, sig)
+    if sig[0] != "attn":
+        raise NotImplementedError(
+            f"{where}: only plain GQA attention layers page (got mixer "
+            f"{sig[0]!r}); serve {cfg.name} with the sync ServeEngine")
 
 
 def apply_layer_paged(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor,
@@ -192,7 +231,7 @@ def apply_layer_paged(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor,
     """One layer of a continuous-batching decode tick against the shared
     block-paged pool, with per-request positions ``lens``.
     Returns (h, cache); h is (B, 1, D)."""
-    check_ported(cfg, sig)
+    _check_pages(cfg, sig, "apply_layer_paged")
     y, cache = attn.attn_decode_paged(cfg, w["mixer"],
                                       norm_apply(cfg, w["ln1"], h), cache,
                                       block_tables, lens)
@@ -206,7 +245,7 @@ def apply_layer_prefill_paged(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor,
     """One layer of a continuation-prefill chunk: like
     :func:`apply_layer_paged` over a (B, C, D) chunk of prompt tokens.
     ``aligned`` passes through to :func:`attn.attn_prefill_paged`."""
-    check_ported(cfg, sig)
+    _check_pages(cfg, sig, "apply_layer_prefill_paged")
     y, cache = attn.attn_prefill_paged(cfg, w["mixer"],
                                        norm_apply(cfg, w["ln1"], h), cache,
                                        block_tables, lens, n_valid,

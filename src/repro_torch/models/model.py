@@ -6,15 +6,22 @@ with one weight dict per layer in global order.  The reference scans
 over stacked per-period weights; here the scan is a Python loop over
 that list (:mod:`repro_torch.convert` unstacks the reference's layout).
 
-Two cache layouts, both written in place by the steps below:
+The layers follow the config's schedule of mixers (``layer_sigs``):
+attention, SSM or, for a hybrid such as jamba, both, each with a dense
+or MoE FFN or none.  Two cache layouts, both written in place by the
+steps below:
 
-* the contiguous decode cache of the sync serve engine, a list with one
-  ``{"k", "v"}`` dict of (B, max_len, KV, hd) tensors per layer
+* the decode cache of the sync serve engine, a list with one dict per
+  layer: ``{"k", "v"}`` of (B, max_len, KV, hd) tensors for an
+  attention layer, ``{"conv", "state"}`` for an SSM layer, the last
+  d_conv - 1 conv inputs (B, d_conv - 1, conv_dim) and the f32 state
+  (B, nh, hd, ds), which do not grow with the sequence
   (:func:`init_cache`, :func:`prefill`, :func:`decode_step`);
 * the paged pools, ``{"k", "v"}`` tensors of shape (L, P, page, KV, hd),
   one (P, page, KV, hd) pool per layer (:func:`paged_decode_step`,
   :func:`paged_prefill_step`; build them with
-  :class:`repro_torch.serve.PagedKVCache`).
+  :class:`repro_torch.serve.PagedKVCache`).  Only attention layers
+  page: models with SSM layers are served by the sync engine.
 
 :func:`forward` runs the ``train`` and ``prefill`` modes; the loss and
 the backward pass are the training slice (ROADMAP queue 1 item 12).
@@ -126,8 +133,9 @@ def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: Union[str, torch.device, None] = "cuda"
                ) -> List[Dict]:
-    """Zeroed contiguous decode cache: one ``{"k", "v"}`` dict of
-    (batch, max_len, KV, hd) tensors per layer."""
+    """Zeroed decode cache, one dict per layer: ``{"k", "v"}`` of
+    (batch, max_len, KV, hd) tensors for attention, ``{"conv", "state"}``
+    for an SSM layer."""
     dev = resolve_device(device)
     return [init_layer_cache(cfg, sig, batch, max_len, device=dev)
             for sig in layer_sigs(cfg)]
@@ -137,9 +145,10 @@ def decode_step(cfg: ModelConfig, params, cache: List[Dict],
                 tokens: torch.Tensor, pos: int
                 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One decode step.  tokens (B, 1) int; ``pos`` (an int) is the write
-    index, the number of tokens already in the cache.  Writes each
-    layer's new K/V row into ``cache`` in place and returns the (B, 1, V)
-    f32 logits and the cache."""
+    index, the number of tokens already in the cache.  Updates ``cache``
+    in place (each attention layer's new K/V row, each SSM layer's conv
+    window and state) and returns the (B, 1, V) f32 logits and the
+    cache."""
     h = _embed_in(cfg, params, tokens, pos0=pos)
     for sig, w, c in zip(layer_sigs(cfg), params["layers"], cache):
         h, _ = apply_layer(cfg, sig, w, h, mode="decode", cache=c, pos=pos)

@@ -49,7 +49,7 @@ def test_kernel_flag_defaults_on():
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("mamba2-370m")
+        get_config("deepseek-v2-lite-16b")
 
 
 def test_moe_config_pinned():
@@ -69,3 +69,38 @@ def test_moe_config_pinned():
     assert (small.n_layers, small.d_model, small.moe.n_experts,
             small.moe.top_k, small.moe.d_ff_expert) == (4, 128, 4, 2, 64)
     assert small.use_kernels is True
+
+
+def test_ssm_config_pinned():
+    """mamba2-370m: published widths (48 SSM layers of 32 heads of 64,
+    d_state 128, no FFN, tied embeddings) and the reduced variant."""
+    cfg = get_config("mamba2-370m")
+    assert (cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.family,
+            cfg.tie_embeddings, cfg.pos_embed) == \
+        (48, 1024, 0, 50280, "ssm", True, "none")
+    s = cfg.ssm
+    assert (s.d_state, s.d_conv, s.expand, s.head_dim, s.n_groups,
+            s.chunk) == (128, 4, 2, 64, 1, 256)
+    assert {cfg.layer_kind(i) for i in range(cfg.n_layers)} == {"ssm"}
+    small = cfg.reduced()
+    assert (small.n_layers, small.d_model, small.ssm.d_state,
+            small.ssm.head_dim, small.ssm.chunk) == (4, 128, 16, 16, 32)
+
+
+def test_hybrid_config_pinned():
+    """jamba-v0.1-52b: one attention layer per 8 (offset 4), MoE every
+    other layer; one period is the 8-layer cut the card serves."""
+    cfg = get_config("jamba-v0.1-52b")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            cfg.d_ff, cfg.vocab_size, cfg.family, cfg.pos_embed) == \
+        (32, 4096, 32, 8, 128, 14336, 65536, "hybrid", "none")
+    assert (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert,
+            cfg.moe.period) == (16, 2, 14336, 2)
+    assert (cfg.ssm.d_state, cfg.ssm.head_dim, cfg.ssm.expand) == (16, 64, 2)
+    cut = dataclasses.replace(cfg, n_layers=8)
+    kinds = [cut.layer_kind(i) for i in range(8)]
+    assert kinds == ["ssm"] * 4 + ["attn"] + ["ssm"] * 3
+    assert [cut.layer_is_moe(i) for i in range(8)] == [True, False] * 4
+    small = cfg.reduced()
+    assert [small.layer_kind(i) for i in range(small.n_layers)] == \
+        ["ssm", "ssm", "ssm", "attn"] * 2

@@ -15,7 +15,12 @@ reach |x| >= 2 where an ulp is 2**-6; float32 atol 1e-5 (1e-4 for flash
 attention, whose sums run over up to 300 keys).  The MoE grouped GEMM:
 bfloat16 atol 1e-2 plus rtol 2**-7 (both round the same f32 sums once,
 summed in different orders); float32 atol 2e-3 plus rtol 1e-5 (sums of
-up to 4096 products, outputs up to ~300 in magnitude).
+up to 4096 products, outputs up to ~300 in magnitude).  The SSD scan:
+y in float32 atol 1e-3 plus rtol 1e-4 (f32 sums over up to 64 chunk rows
+and ds state columns, carried through exp of the cumulative decay, in
+other orders than the plain version's), in bfloat16 atol 1e-2 plus rtol
+2**-7 (both round the same f32 value once); the f32 state atol 1e-3
+plus rtol 1e-4 in both.
 """
 
 import dataclasses
@@ -28,7 +33,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  flash_attention, flash_attention_plain,
-                                 launch_counts, moe_gmm, moe_gmm_plain,
+                                 launch_counts, mamba2_ssd,
+                                 mamba2_ssd_plain, moe_gmm, moe_gmm_plain,
                                  paged_decode_attention,
                                  paged_decode_attention_plain,
                                  reset_launch_counts)
@@ -263,4 +269,88 @@ def test_moe_engines_kernel_path_matches_plain_path(cuda):
     p_res, _ = plain.run(reqs)
     assert all(d["near_tie"] for d in divergences(
         plain, reqs, p_res, s_res, engine=sync,
+        routing_margin=REDUCED_ROUTING_MARGIN))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hd,G,ds,offset", [
+    (1, 64, 2, 16, 1, 16, 0),       # one chunk
+    (2, 200, 4, 32, 2, 16, 0),      # ragged S, two groups
+    (1, 130, 8, 64, 1, 128, 0),     # mamba2's head and state size, ragged
+    (2, 52, 4, 64, 2, 64, 0),       # shorter than a chunk
+    (1, 333, 4, 16, 4, 32, 0),      # one head per group
+    (1, 100, 4, 64, 1, 128, 1),     # operands not 16-byte aligned
+])
+def test_mamba2_ssd_kernel_matches_plain(cuda, B, S, nh, hd, G, ds, offset,
+                                         dtype):
+    g = torch.Generator().manual_seed(S + ds + G)
+
+    def operand(shape, dt, scale=0.5):
+        flat = (_randn(g, math.prod(shape) + offset) * scale).to(dt).cuda()
+        return flat[offset:].view(shape)
+
+    x = operand((B, S, nh, hd), dtype)
+    dt = operand((B, S, nh), torch.float32).abs() * 0.8 + 0.05
+    A = -operand((nh,), torch.float32, 1.0).abs() - 0.1
+    Bm, Cm = operand((B, S, G, ds), dtype), operand((B, S, G, ds), dtype)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    before = launch_counts()["mamba2_ssd"]
+    y, h = mamba2_ssd(x, dt.contiguous(), A.contiguous(), Bm, Cm)
+    torch.cuda.synchronize()
+    assert launch_counts()["mamba2_ssd"] == before + 1
+    want_y, want_h = mamba2_ssd_plain(x, dt, A, Bm, Cm)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert y.dtype == dtype and h.dtype == torch.float32
+    f32 = dtype == torch.float32
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want_y.float().cpu().numpy(),
+                               rtol=1e-4 if f32 else RTOL[dtype],
+                               atol=1e-3 if f32 else ATOL[dtype])
+    np.testing.assert_allclose(h.cpu().numpy(), want_h.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_mamba2_ssd_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 8, 4, 64), device="cuda")
+    dt = torch.zeros((1, 8, 4), device="cuda")
+    A = -torch.ones((4,), device="cuda")
+    Bm = torch.zeros((1, 8, 1, 128), device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba2_ssd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                   Bm, Bm)
+    with pytest.raises(ValueError, match="ds=24"):
+        mamba2_ssd(x, dt, A, Bm[..., :24].contiguous(),
+                   Bm[..., :24].contiguous())
+    with pytest.raises(ValueError, match="on cuda"):
+        mamba2_ssd(x, dt.cpu(), A, Bm, Bm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
+def test_ssm_sync_engine_kernel_path_matches_plain_path(cuda, arch):
+    """The reduced mamba2 and jamba served by the sync engine on the card:
+    two mamba2_ssd launches per SSM layer per prefill (the layer's output
+    and the state it hands to decode), one flash launch per attention
+    layer per prefill, and greedy streams equal to the plain path's up
+    to near-ties (jamba: or routing near-ties)."""
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.n_layers))
+    reqs = get_trace("base")(4, cfg.vocab_size, seed=1)
+    kernel = ServeEngine(cfg, params, max_len=128)
+    reset_launch_counts()
+    k_res, k_stats = kernel.run(reqs)
+    counts = launch_counts()
+    assert counts["mamba2_ssd"] == 2 * n_ssm * len(reqs)
+    assert counts["flash_attention"] == (cfg.n_layers - n_ssm) * len(reqs)
+    assert counts["decode_attention"] == \
+        (cfg.n_layers - n_ssm) * k_stats.decode_steps
+    plain = ServeEngine(dataclasses.replace(cfg, use_kernels=False), params,
+                        max_len=128)
+    p_res, _ = plain.run(reqs)
+    assert all(d["near_tie"] for d in divergences(
+        plain, reqs, p_res, k_res, engine=kernel,
         routing_margin=REDUCED_ROUTING_MARGIN))

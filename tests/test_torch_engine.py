@@ -30,6 +30,7 @@ from repro.serve import ServeEngine as JaxServeEngine
 from repro.serve.traces import get_trace as jax_get_trace
 from repro_torch.configs import get_config
 from repro_torch.convert import convert_params
+from repro_torch.kernels import launch_counts
 from repro_torch.serve import ServeEngine, get_trace
 from repro_torch.serve.parity import NEAR_TIE, divergences
 
@@ -178,3 +179,101 @@ def test_moe_greedy_oracle_matches_reference(dtype):
     assert not bad, f"streams diverge above the {NEAR_TIE} near-tie: {bad}"
     if dtype == "float32":
         assert not div, f"float32 greedy streams differ: {div}"
+
+
+# -- SSM and hybrid: the reduced mamba2-370m and jamba-v0.1-52b --------------
+#
+# The reference serves these only through its sync engine, as the port
+# does.  Kernel path as above: every prefill runs mamba2_ssd twice per
+# SSM layer (its plain version on the CPU).  In a right-padded group
+# (``batch=2`` with prompts of different lengths) the padding tokens run
+# through the SSM state and conv window of the shorter prompt, where
+# attention masks them; the reference does the same, and the port copies
+# it.
+#
+# jamba runs in float32 only here, as in tests/test_torch_model.py.  In
+# bfloat16 its logits carry a few percent of rounding noise between the
+# frameworks (four SSM layers amplify one-ulp flips, and its MoE routing
+# flips at near-ties), so a greedy stream can part from the reference's
+# at a top-2 margin above NEAR_TIE with every routing decision equal: one
+# request of this trace parts at a reference margin of 0.058.  The card
+# holds its bf16 streams to the port's plain path (chip_smoke.py).
+
+SSM_ARCHS = {"mamba2": ("mamba2-370m", 2), "jamba": ("jamba-v0.1-52b", 3)}
+
+
+@functools.lru_cache(maxsize=None)
+def _ssm_models(name, dtype):
+    arch, seed = SSM_ARCHS[name]
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), dtype=dtype)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(seed))
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    return jcfg, jparams, cfg, convert_params(
+        jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+def _ssm_serve(name, dtype, batch, n, seed):
+    jcfg, jparams, cfg, params = _ssm_models(name, dtype)
+    jreqs, reqs = _traces(n, seed)
+    jres, jstats = JaxServeEngine(jcfg, jparams, max_len=MAX_LEN).run(
+        jreqs, batch=batch)
+    eng = ServeEngine(cfg, params, max_len=MAX_LEN, device="cpu")
+    before = launch_counts()["mamba2_ssd"]
+    res, stats = eng.run(reqs, batch=batch)
+    n_ssm = sum(cfg.layer_kind(i) == "ssm" for i in range(cfg.n_layers))
+    assert launch_counts()["mamba2_ssd"] == before     # CPU: plain runs
+    assert n_ssm > 0
+    for f in ("requests", "tokens", "decode_steps", "batches"):
+        assert stats[f] == jstats[f], f
+    for a, b in zip(jres, res):
+        assert (b.prompt_len, b.admitted, b.finished, len(b.tokens)) == \
+            (a.prompt_len, a.admitted, a.finished, len(a.tokens))
+    return reqs, jres, res, eng
+
+
+@pytest.mark.parametrize("name,dtype", [("mamba2", "float32"),
+                                        ("mamba2", "bfloat16"),
+                                        ("jamba", "float32")])
+def test_ssm_greedy_oracle_matches_reference(name, dtype):
+    reqs, jres, res, eng = _ssm_serve(name, dtype, batch=1, n=4, seed=7)
+    plain = ServeEngine(dataclasses.replace(eng.cfg, use_kernels=False),
+                        eng.params, max_len=MAX_LEN, device="cpu")
+    div = divergences(plain, reqs, jres, res)
+    bad = [d for d in div if not d["near_tie"]]
+    assert not bad, f"streams diverge above the {NEAR_TIE} near-tie: {bad}"
+    if dtype == "float32":
+        assert not div, f"float32 greedy streams differ: {div}"
+
+
+@pytest.mark.parametrize("name", list(SSM_ARCHS))
+def test_ssm_convoy_batch_matches_reference(name):
+    """batch=2 over prompts of different lengths: the shorter prompt's
+    padding runs through its SSM state, in the reference and the port
+    alike, and the float32 streams are identical."""
+    reqs, jres, res, _ = _ssm_serve(name, "float32", batch=2, n=3, seed=3)
+    assert len({r.prompt.shape[0] for r in reqs[:2]}) == 2
+    for a, b in zip(jres, res):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.mark.parametrize("name", list(SSM_ARCHS))
+def test_ssm_generate_and_prefill_pad(name):
+    """``run(batch=1)`` equals ``generate`` request by request, and
+    ``teacher_forced_logits`` along a stream picks its tokens; with
+    ``prefill_pad`` the padding runs through the SSM state, so the
+    stream is the reference's ``prefill_pad`` stream."""
+    jcfg, jparams, cfg, params = _ssm_models(name, "float32")
+    jreqs, reqs = _traces(2, seed=4)
+    eng = ServeEngine(cfg, params, max_len=MAX_LEN, device="cpu")
+    res, _ = eng.run(reqs)
+    for r, got in zip(reqs, res):
+        solo = eng.generate(r.prompt[None], n_steps=r.n_steps).tokens[0]
+        np.testing.assert_array_equal(solo, got.tokens)
+        logits = eng.teacher_forced_logits(r.prompt, got.tokens)
+        assert [int(l.argmax()) for l in logits] == list(got.tokens)
+    p = reqs[0].prompt[None]
+    padded = ServeEngine(cfg, params, max_len=MAX_LEN, prefill_pad=True,
+                         device="cpu").generate(p, n_steps=8).tokens
+    want = JaxServeEngine(jcfg, jparams, max_len=MAX_LEN,
+                          prefill_pad=True).generate(p, n_steps=8).tokens
+    np.testing.assert_array_equal(padded, np.asarray(want))

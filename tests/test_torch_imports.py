@@ -74,3 +74,27 @@ def test_moe_modules_import_clean():
     for mod in ("repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
                 "repro_torch.configs.qwen3_moe_235b_a22b"):
         assert mod in got["modules"]
+
+
+def test_ssm_modules_import_clean():
+    """The SSM slice's modules are part of the walk above and load
+    neither jax nor the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    for mod in ("repro_torch.models.ssm", "repro_torch.kernels.mamba2_ssd",
+                "repro_torch.configs.mamba2_370m",
+                "repro_torch.configs.jamba_v0_1_52b"):
+        assert mod in got["modules"]
+
+
+def test_ssm_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache
+    cfg = get_config("mamba2-370m").reduced()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 1, 8)

@@ -34,6 +34,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.kernels import dispatch as kdispatch
 from repro.models import init_params as jax_init_params
+from repro.models.blocks import schedule as jax_schedule
 from repro.models.model import decode_step as jax_decode_step
 from repro.models.model import forward as jax_forward
 from repro.models.model import paged_decode_step as jax_decode
@@ -356,3 +357,254 @@ def test_moe_paged_steps_match_reference(kernels):
                             torch.from_numpy(nv))
     _close(tl, jl)
     _check_pools(tpools, jnew)
+
+
+# -- SSM and hybrid: the reduced mamba2-370m and jamba-v0.1-52b --------------
+#
+# mamba2 in float32 and bfloat16, jamba in float32 only (its MoE routing
+# flips at near-ties under bf16 rounding, as qwen3-moe's does).  On the
+# kernel paths the port's mamba2_ssd wrapper runs its plain version at
+# the chunk the reference's planner picks for the same shapes (the
+# ``reference_chunk`` fixture).
+#
+# float32: rtol 1e-4 (absolute floor as above).  A chunk's cumulative
+# log-decay sums up to 32 terms and reaches hundreds in magnitude; each
+# decay is the exp of a difference of two such sums, so one ulp of a sum
+# taken in another order is a ~3e-5 relative change of a decay, and the
+# state carries it across chunks and layers.
+# bfloat16: the frameworks round the same values at the same points but
+# from sums in other orders, and over four SSM layers a one-ulp flip of
+# an activation grows to a few percent of some logits: the reference's
+# own bf16 run lies 2.1% (relative norm) from a float32 run of the same
+# weights.  So each bf16 output is held by the float32 yardstick that
+# chip_smoke.py uses on the card: within 5e-2 relative norm of the
+# reference's bf16 output, and no further from the port's float32 run
+# of the same (upcast) weights and state than 1.5x the reference is.
+
+SSM_ARCHS = {"mamba2": ("mamba2-370m", 2), "jamba": ("jamba-v0.1-52b", 3)}
+SSM_CASES = [("mamba2", "float32", False), ("mamba2", "float32", True),
+             ("mamba2", "bfloat16", False), ("mamba2", "bfloat16", True),
+             ("jamba", "float32", False), ("jamba", "float32", True)]
+SSM_IDS = [f"{a}-{d}-{'kernels' if k else 'plain'}" for a, d, k in SSM_CASES]
+SSM_RTOL = 1e-4
+BF16_REL = 5e-2
+
+
+def _upcast(tree):
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_upcast(v) for v in tree]
+    return tree.float() if tree.dtype == torch.bfloat16 else tree
+
+
+def _held(port, ref, f32=None):
+    """float32 (``f32`` None): elementwise at ``SSM_RTOL``.  bfloat16:
+    the yardstick rule above, ``f32`` the port's float32 output."""
+    if f32 is None:
+        _close(port, ref, SSM_RTOL)
+        return
+    a, b, c = (np.asarray(t.float().numpy() if torch.is_tensor(t) else t,
+                          np.float32) for t in (port, ref, f32))
+    assert np.isfinite(a).all()
+
+    def rel(u, v):
+        return np.linalg.norm(u - v) / max(np.linalg.norm(v), 1e-30)
+
+    assert rel(a, b) < BF16_REL, (rel(a, b), BF16_REL)
+    assert rel(a, c) <= 1.5 * rel(b, c) + 1e-6, (rel(a, c), rel(b, c))
+
+
+@pytest.fixture
+def reference_chunk(monkeypatch):
+    """Run the SSD kernel wrapper's CPU path at the reference planner's
+    chunk for the same shapes (the Pallas path's chunk)."""
+    import importlib
+    from repro.kernels.plan import plan_for
+    mod = importlib.import_module("repro_torch.kernels.mamba2_ssd")
+    plain = mod.mamba2_ssd_plain
+
+    def at_reference_chunk(x, dt, A, Bm, Cm):
+        B, S, nh, hd = x.shape
+        chunk = plan_for("mamba2_ssd", {"B": B, "S": S, "nh": nh, "hd": hd,
+                                        "ds": Bm.shape[3], "G": Bm.shape[2]},
+                         dtype=jnp.float32, pad=True).blocks["chunk"]
+        return plain(x, dt, A, Bm, Cm, chunk=chunk)
+
+    monkeypatch.setattr(mod, "mamba2_ssd_plain", at_reference_chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _ssm_models(name, dtype, kernels):
+    arch, seed = SSM_ARCHS[name]
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), dtype=dtype,
+                               use_pallas=kernels)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype,
+                              use_kernels=kernels)
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(seed))
+    return jcfg, jparams, cfg, convert_params(
+        jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+def _n_attn(cfg):
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def _f32_twin(cfg, params):
+    """The port's plain path in float32 on the same weights, upcast."""
+    return dataclasses.replace(cfg, dtype="float32", use_kernels=False), \
+        _upcast(params)
+
+
+def _held_cache(cache, want, f32_cache=None):
+    assert len(cache) == len(want)
+    for i, (got, ref) in enumerate(zip(cache, want)):
+        assert set(got) == set(ref)
+        for n in got:
+            assert got[n].shape == ref[n].shape and \
+                got[n].dtype == ref[n].dtype, n
+            _held(got[n], ref[n].float().numpy(),
+                  None if f32_cache is None else f32_cache[i][n])
+
+
+@pytest.mark.parametrize("name,dtype,kernels", SSM_CASES, ids=SSM_IDS)
+def test_ssm_forward_train_matches_reference(name, dtype, kernels,
+                                             reference_chunk):
+    jcfg, jparams, cfg, params = _ssm_models(name, dtype, kernels)
+    toks = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (2, 45)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks)}
+    with kdispatch.decision_scope() as decisions:
+        jl, jaux = jax_forward(jcfg, jparams, {"tokens": jnp.asarray(toks)},
+                               mode="train")
+    _reference_ran(decisions, "mamba2_ssd", kernels)
+    if _n_attn(cfg):
+        _reference_ran(decisions, "flash_attention", kernels)
+    tl, aux = forward(cfg, params, batch, mode="train")
+    assert tl.shape == (2, 45, cfg.vocab_size) and tl.dtype == torch.float32
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5, atol=0)
+    f32 = None
+    if dtype == "bfloat16":
+        f32 = forward(*_f32_twin(cfg, params), batch, mode="train")[0]
+    _held(tl, jl, f32)
+
+
+@pytest.mark.parametrize("name,dtype,kernels", SSM_CASES, ids=SSM_IDS)
+def test_ssm_prefill_and_decode_step_match_reference(name, dtype, kernels,
+                                                     reference_chunk):
+    """Prefill logits and every layer's cache ({"conv", "state"} for SSM
+    layers, padded K/V for attention ones); then one decode step on both
+    sides from the reference's cache carried over by ``convert_cache``,
+    updated in place on the port's side."""
+    jcfg, jparams, cfg, params = _ssm_models(name, dtype, kernels)
+    rng = np.random.default_rng(14)
+    toks = rng.integers(0, cfg.vocab_size, (2, 37)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab_size, (2, 1)).astype(np.int32)
+    batch, max_len = {"tokens": torch.from_numpy(toks)}, 64
+    with kdispatch.decision_scope() as decisions:
+        jl, jcache = jax_sync_prefill(jcfg, jparams,
+                                      {"tokens": jnp.asarray(toks)}, max_len)
+    _reference_ran(decisions, "mamba2_ssd", kernels)
+    tl, cache = prefill(cfg, params, batch, max_len)
+    np_cache = jax.tree.map(np.asarray, jcache)
+    f32_l = f32_cache = f32_dl = f32_new = None
+    if dtype == "bfloat16":
+        f32_cfg, f32_params = _f32_twin(cfg, params)
+        f32_l, f32_cache = prefill(f32_cfg, f32_params, batch, max_len)
+        f32_new = _upcast(convert_cache(np_cache, device="cpu"))
+        f32_dl, _ = decode_step(f32_cfg, f32_params, f32_new,
+                                torch.from_numpy(nxt), 37)
+    _held(tl, jl, f32_l)
+    _held_cache(cache, convert_cache(np_cache, device="cpu"), f32_cache)
+    jdl, jnew = jax_decode_step(jcfg, jparams, jcache, jnp.asarray(nxt),
+                                jnp.int32(37))
+    carried = convert_cache(np_cache, device="cpu")
+    ptrs = [{n: t.data_ptr() for n, t in c.items()} for c in carried]
+    tdl, new = decode_step(cfg, params, carried, torch.from_numpy(nxt), 37)
+    assert new is carried
+    assert [{n: t.data_ptr() for n, t in c.items()} for c in new] == ptrs
+    _held(tdl, jdl, f32_dl)
+    _held_cache(new, convert_cache(jax.tree.map(np.asarray, jnew),
+                                   device="cpu"), f32_new)
+@pytest.mark.parametrize("name,kernels", [("mamba2", False),
+                                          ("mamba2", True),
+                                          ("jamba", False), ("jamba", True)])
+def test_ssm_prefill_then_decode_continues_the_sequence(name, kernels):
+    """State handoff: decoding token S-1 after a prefill of S-1 tokens
+    gives forward's last logits over all S (float32; the prefill scan is
+    chunked, the decode step a recurrence, so rtol 1e-4)."""
+    _, _, cfg, params = _ssm_models(name, "float32", kernels)
+    toks = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    full, _ = forward(cfg, params, {"tokens": toks}, mode="train")
+    _, cache = prefill(cfg, params, {"tokens": toks[:, :39]}, max_len=48)
+    step, _ = decode_step(cfg, params, cache, toks[:, 39:], 39)
+    _close(step[:, 0], full[:, -1].numpy(), 1e-4)
+
+
+@pytest.mark.parametrize("name", list(SSM_ARCHS))
+def test_convert_cache_carries_ssm_leaves(name):
+    """The reference's stacked decode cache comes out one dict per layer
+    in global order, bit for bit: {"conv", "state"} for SSM layers (the
+    state in f32), {"k", "v"} for jamba's attention layers, each slot of
+    a period unstacked."""
+    jcfg, _, cfg, _ = _ssm_models(name, "bfloat16", False)
+    from repro.models.model import init_cache as jax_init_cache
+    jcache = jax_init_cache(jcfg, 2, 16)
+    rng = np.random.default_rng(16)
+    np_cache = jax.tree.map(
+        lambda a: np.asarray(jnp.asarray(rng.standard_normal(a.shape),
+                                         a.dtype)), jcache)
+    cache = convert_cache(np_cache, device="cpu")
+    assert len(cache) == cfg.n_layers
+    _, period, _ = jax_schedule(jcfg)
+    for i, layer in enumerate(cache):
+        slot = np_cache["layers"][i % period]
+        kind = cfg.layer_kind(i)
+        assert set(layer) == ({"conv", "state"} if kind == "ssm"
+                              else {"k", "v"})
+        for n, t in layer.items():
+            ref = slot[n][i // period]
+            assert tuple(t.shape) == ref.shape
+            np.testing.assert_array_equal(t.float().numpy(),
+                                          np.asarray(ref, np.float32))
+        if kind == "ssm":
+            assert layer["state"].dtype == torch.float32
+            assert layer["conv"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", list(SSM_ARCHS))
+def test_convert_params_carries_ssm_leaves(name):
+    jcfg, jparams, cfg, params = _ssm_models(name, "bfloat16", False)
+    _, period, _ = jax_schedule(jcfg)
+    assert len(params["layers"]) == cfg.n_layers
+    for i, layer in enumerate(params["layers"]):
+        ref = jparams["layers"][i % period]
+        if cfg.layer_kind(i) == "ssm":
+            for n in ("in_proj", "conv_w", "A_log", "D", "dt_bias", "norm",
+                      "out_proj"):
+                got, want = layer["mixer"][n], ref["mixer"][n][i // period]
+                assert str(got.dtype).split(".")[1] == want.dtype.name, n
+                np.testing.assert_array_equal(got.float().numpy(),
+                                              np.asarray(want, np.float32))
+        else:
+            assert set(layer["mixer"]) == {"wq", "wk", "wv", "wo"}
+    assert ("unembed" in params) == (not cfg.tie_embeddings)
+
+
+def test_paged_steps_refuse_ssm_layers():
+    """The paged layer steps page attention layers only, as the
+    reference's: an SSM layer raises instead of mixing cache layouts."""
+    from repro_torch.models.blocks import (apply_layer_paged,
+                                           apply_layer_prefill_paged)
+    _, _, cfg, params = _ssm_models("jamba", "float32", False)
+    w = params["layers"][0]
+    assert cfg.layer_kind(0) == "ssm"
+    h = torch.zeros((1, 1, cfg.d_model))
+    tables = torch.zeros((1, 1), dtype=torch.int32)
+    lens = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="only plain GQA"):
+        apply_layer_paged(cfg, ("ssm", True), w, h, {}, tables, lens)
+    with pytest.raises(NotImplementedError, match="only plain GQA"):
+        apply_layer_prefill_paged(cfg, ("ssm", True), w, h, {}, tables,
+                                  lens, lens + 1)

@@ -158,3 +158,14 @@ def test_cache_rejects_non_attention_layers():
     cfg = dataclasses.replace(CFG, family="ssm")
     with pytest.raises(NotImplementedError, match="only plain GQA"):
         PagedKVCache(cfg, n_blocks=3, page=64, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
+def test_cache_rejects_the_ssm_and_hybrid_configs(arch):
+    """The real configs, as the reference's cache rejects them: their SSM
+    layers keep an O(1) state and are served by the sync engine."""
+    with pytest.raises(NotImplementedError, match="only plain GQA.*ssm"):
+        PagedKVCache(get_config(arch), n_blocks=3, page=64, device="cpu")
+    with pytest.raises(NotImplementedError, match="only plain GQA"):
+        JaxPagedKVCache(jax_get_config(arch).reduced(), n_blocks=3,
+                        page=PAGE)
