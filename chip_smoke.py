@@ -86,7 +86,18 @@ Phases (any failure exits non-zero and prints no result line):
     517 tokens; ``mamba2_ssd`` 2 x 7 x prefills, flash 1 x prefills,
     decode 1 x decode steps, ``moe_gmm`` 3 x 4 x (prefills + decode
     steps); a decode step of 8 x 512-token prompts and the streams held
-    to the plain path by the MoE rules of 9.
+    to the plain path by the MoE rules of 9;
+15. the MFMA contract: jamba is freed, and ``mfma_gemm`` (D = C + A @ B,
+    bf16/f16 operands on the tensor cores) is held to its plain version
+    at kernels_bench's 256^3, qwen2-7b's gate/up projection at decode
+    (M = 8) and prefill (M = 2048) and its down projection at prefill, a
+    ragged shape, f32 and f16 operands and a bf16 C, the bf16 shapes with
+    f32 C timed beside ``torch.addmm(..., out_dtype=float32)`` and their
+    bound; then, counted, the contract path: C = 3 against C = 0 exactly
+    3 apart at the decode and prefill shapes, the GEMM against
+    compositions of ``core.functional.mfma_apply`` micro-ops
+    (fp32_16x16x4fp32, fp32_16x16x16bf16) on the card, and every
+    registry instruction's ``mfma_apply`` on the card against the CPU.
 
 The second-to-last line is a JSON record of every kernel, the last line
 ``{"ok": true, "device": {...}}``.  It needs one GPU, ``nvcc`` (under
@@ -105,10 +116,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-# NVIDIA H100 SXM data sheet, dense: HBM3 bandwidth and bf16 tensor rate
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
 
 SERVE = dict(arch="qwen2-7b", requests=8, n_steps=16, prefix_len=128,
              max_len=256, max_batch=8, seed=0)
@@ -135,6 +142,23 @@ SSM_SYNC = dict(max_len=2048, prompts=(2000, 1537, 1024, 517), n_steps=16,
 HYBRID = dict(arch="jamba-v0.1-52b", n_layers=8, seed=5)
 HYBRID_SYNC = dict(max_len=2048, prompts=(2000, 517), n_steps=16,
                    check_batch=(8, 512), seed=6)
+# the MFMA GEMM's shapes (M, K, N, a/b dtype, c dtype, timed):
+# kernels_bench's 256^3, qwen2-7b's gate/up projection (d_model 3584 ->
+# d_ff 18944) at a decode step of 8 rows and a 2048-row prefill, its down
+# projection at prefill, a ragged case with no dimension a multiple of 16
+# (K % 8 != 0 also takes the one-element loads), f32 and f16 operands and
+# a bf16 C
+GEMM_CASES = {
+    "256^3": (256, 256, 256, "bfloat16", "float32", True),
+    "decode gate/up": (8, 3584, 18944, "bfloat16", "float32", True),
+    "prefill gate/up": (2048, 3584, 18944, "bfloat16", "float32", True),
+    "prefill down": (2048, 18944, 3584, "bfloat16", "float32", True),
+    "ragged": (1999, 3580, 1000, "bfloat16", "float32", False),
+    "f32 operands 256^3": (256, 256, 256, "float32", "float32", False),
+    "f16 operands": (512, 3584, 1024, "float16", "float32", False),
+    "bf16 C": (1024, 3584, 3584, "bfloat16", "bfloat16", False),
+}
+GEMM_RECORD = "prefill gate/up"
 # the reference's limit for the prefill -> decode state handoff of its
 # bf16 SSM model (tests/test_arch_smoke.py)
 HANDOFF_TOL = 3e-2
@@ -192,9 +216,12 @@ def held_to_plain(torch, name: str, got, want) -> float:
 
 def bound(nbytes: int, flops: int):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate
-    and the operations over the bf16 tensor-core rate."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    and the operations over the bf16 tensor-core rate, both from the
+    port's H100 spec (NVIDIA's data sheet: 3.35 TB/s, 989 TFLOP/s)."""
+    from repro_torch.arch import get_device
+    h100 = get_device("h100")
+    bytes_ms = nbytes / h100.memory.hbm_bw * 1e3
+    ops_ms = flops / h100.peak_flops * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
         else "operations"
 
@@ -1331,6 +1358,181 @@ def phase_ssm_profile(torch, cfg, params):
             lambda: eng.decode(cache, tok, 1024).argmax(-1).cpu())
 
 
+# -- phase 15: the MFMA contract ----------------------------------------------
+
+def gemm_operands(torch, g, M: int, K: int, N: int, ab, c_dt):
+    """a (M, K) and b (K, N) in ``ab``, b scaled by 1/sqrt(K) so that
+    outputs stay near unit size, and c (M, N) in ``c_dt``."""
+    a = torch.randn((M, K), generator=g, device="cuda").to(ab)
+    b = (torch.randn((K, N), generator=g, device="cuda")
+         / math.sqrt(K)).to(ab)
+    c = torch.randn((M, N), generator=g, device="cuda").to(c_dt)
+    return a, b, c
+
+
+def gemm_records(torch):
+    """``mfma_gemm`` held to its plain version at the shapes of
+    ``GEMM_CASES``, the bf16 ones with f32 C timed beside the library
+    call and their bound; returns the record of the prefill gate/up
+    projection and every timed shape's numbers."""
+    from repro_torch.kernels import mfma_gemm, mfma_gemm_plain
+    g = torch.Generator(device="cuda").manual_seed(8)
+    flush = l2_flush(torch)
+    library_name = None
+    record, timed_rows, max_abs_err = None, [], 0.0
+    for label, (M, K, N, ab, c_dt, timed) in GEMM_CASES.items():
+        ab, c_dt = getattr(torch, ab), getattr(torch, c_dt)
+        a, b, c = gemm_operands(torch, g, M, K, N, ab, c_dt)
+        got = mfma_gemm(a, b, c)
+        torch.cuda.synchronize()
+        want = mfma_gemm_plain(a, b, c)
+        check(got.dtype == c_dt and tuple(got.shape) == (M, N),
+              f"mfma_gemm ({label}): got {got.dtype} {tuple(got.shape)}")
+        err = held_to_plain(torch, f"mfma_gemm ({label})", got, want)
+        max_abs_err = max(max_abs_err, err)
+        msg = (f"mfma_gemm {label}: M={M} K={K} N={N} a/b {ab} c {c_dt}: "
+               f"max abs err {err:.3g}")
+        if timed:
+            if library_name is None:
+                try:
+                    torch.addmm(c, a, b, out_dtype=torch.float32)
+                    library_name = "torch.addmm(c, a, b, out_dtype=float32)"
+                except (RuntimeError, TypeError, NotImplementedError):
+                    library_name = ("c + torch.mm(a, b).float() (the product"
+                                    " rounded to bf16 before the sum)")
+            if library_name.startswith("torch.addmm"):
+                def library():
+                    return torch.addmm(c, a, b, out_dtype=torch.float32)
+            else:
+                def library():
+                    return c + torch.mm(a, b).float()
+            big = M * N * K > 1 << 30
+            ms = time_ms(torch, lambda: mfma_gemm(a, b, c),
+                         20 if big else 100, flush)
+            plain_ms = time_ms(torch, lambda: mfma_gemm_plain(a, b, c),
+                               5 if big else 20, flush)
+            library_ms = time_ms(torch, library, 20 if big else 100, flush)
+            lib_err = float((library().float() - want.float()).abs().max())
+            nbytes = (a.numel() + b.numel()) * a.element_size() \
+                + 2 * c.numel() * c.element_size()
+            flops = 2 * M * N * K
+            bound_ms, bound_by = bound(nbytes, flops)
+            msg += (f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                    f"{nbytes / ms / 1e9:.3f} TB/s), plain {plain_ms:.4f} ms, "
+                    f"{library_name} {library_ms:.4f} ms (max abs err vs "
+                    f"plain {lib_err:.3g}), bound {bound_ms:.5f} ms "
+                    f"({bound_by}: {nbytes} bytes, {flops} flops)")
+            timed_rows.append({"shape": label, "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": library_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by})
+            if label == GEMM_RECORD:
+                record = {"name": "mfma_gemm", "route": "cuda",
+                          "source": "src/repro_torch/csrc/mfma_gemm.cu",
+                          "replaces": "src/repro/kernels/mfma_gemm.py:47",
+                          "launches": None, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms}
+        print(msg)
+        del a, b, c, got, want
+    torch.cuda.empty_cache()
+    record["max_abs_err"] = max_abs_err
+    print(f"mfma_gemm library call: {library_name}")
+    return record, timed_rows
+
+
+def compose_microops(torch, instr: str, a, b, c):
+    """D of a GEMM accumulated over its (M/16 x N/16 x K/k) tiles, one
+    ``core.functional.mfma_apply`` of ``instr`` each, on a and b's
+    device."""
+    from repro_torch.core import isa
+    from repro_torch.core.functional import mfma_apply
+    k = isa.lookup(instr).k
+    d = c.clone()
+    for i in range(0, a.shape[0], 16):
+        for j in range(0, b.shape[1], 16):
+            for kk in range(0, a.shape[1], k):
+                blk = mfma_apply(instr, a[None, i:i + 16, kk:kk + k],
+                                 b[None, kk:kk + k, j:j + 16],
+                                 d[None, i:i + 16, j:j + 16])
+                d[i:i + 16, j:j + 16] = blk[0]
+    return d
+
+
+def phase_mfma_contract(torch):
+    """The MFMA contract layer through its entry points, counted: the
+    accumulate contract at qwen2-7b's decode and prefill projection
+    shapes, the GEMM against micro-op compositions of the functional
+    oracle, and the oracle on the card against the CPU for every
+    instruction.  Returns the launches of ``mfma_gemm``."""
+    from repro_torch.core import isa
+    from repro_torch.core.functional import mfma_apply, random_operands
+    from repro_torch.kernels import (launch_counts, mfma_gemm,
+                                     mfma_gemm_plain, reset_launch_counts)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    reset_launch_counts()
+    calls = 0
+    # (b) integer-valued operands make every sum exact in f32 (|sums| <=
+    # K x 16 < 2**24), so C = 3 and C = 0 must give outputs exactly 3
+    # apart, and each must equal the plain version exactly
+    for label in ("decode gate/up", "prefill gate/up"):
+        M, K, N = GEMM_CASES[label][:3]
+        a = torch.randint(-4, 5, (M, K), generator=g, device="cuda").to(
+            torch.bfloat16)
+        b = torch.randint(-4, 5, (K, N), generator=g, device="cuda").to(
+            torch.bfloat16)
+        c0 = torch.zeros((M, N), device="cuda")
+        d0 = mfma_gemm(a, b, c0)
+        d3 = mfma_gemm(a, b, c0 + 3.0)
+        calls += 2
+        check(bool(((d3 - d0) == 3.0).all()),
+              f"mfma_gemm ({label}): C = 3 and C = 0 differ by "
+              f"{float((d3 - d0).min())}..{float((d3 - d0).max())}, not 3")
+        check(torch.equal(d0, mfma_gemm_plain(a, b, c0)),
+              f"mfma_gemm ({label}): integer-valued sums are not exact")
+        print(f"mfma_gemm accumulate ({label}, M={M} K={K} N={N}, integer-"
+              "valued bf16): C = 3 minus C = 0 is exactly 3, sums exact")
+        del a, b, c0, d0, d3
+    # (c) the GEMM against micro-op compositions on the card
+    for instr, (M, K, N), dt in (("fp32_16x16x4fp32", (128, 8, 128),
+                                  torch.float32),
+                                 ("fp32_16x16x16bf16", (128, 32, 128),
+                                  torch.bfloat16)):
+        a, b, c = gemm_operands(torch, g, M, K, N, dt, torch.float32)
+        got = mfma_gemm(a, b, c)
+        calls += 1
+        want = compose_microops(torch, instr, a, b, c)
+        err = float((got - want).abs().max())
+        check(err <= 1e-4 + 1e-4 * float(want.abs().max()),
+              f"mfma_gemm vs {instr} micro-ops: max abs err {err}")
+        n_ops = (M // 16) * (N // 16) * (K // isa.lookup(instr).k)
+        print(f"mfma_gemm {M}x{K}x{N} {dt} vs {n_ops} {instr} micro-ops on "
+              f"the card: max abs err {err:.3g}")
+    counts = launch_counts()
+    # (d) the functional oracle on the card against the CPU: i8 exactly,
+    # the rest to 1e-6 relative
+    for name, instr in isa.MFMA_REGISTRY.items():
+        a, b, c = random_operands(name, seed=1, device="cuda")
+        got = mfma_apply(name, a, b, c)
+        want = mfma_apply(name, a.cpu(), b.cpu(), c.cpu())
+        check(got.device.type == "cuda" and got.dtype == want.dtype,
+              f"mfma_apply({name}) on the card: {got.device} {got.dtype}")
+        if instr.out_dtype == "i32":
+            check(torch.equal(got.cpu(), want),
+                  f"mfma_apply({name}) on the card is not exact")
+        else:
+            err = float((got.cpu() - want).abs().max() / want.abs().max())
+            check(err <= 1e-6, f"mfma_apply({name}) on the card: max abs "
+                  f"error {err} of the largest output > 1e-6")
+    print(f"mfma_apply: all {len(isa.MFMA_REGISTRY)} instructions on the "
+          "card equal the CPU (i8 exactly, the rest within 1e-6)")
+    check(counts["mfma_gemm"] == calls,
+          f"mfma_gemm launched {counts['mfma_gemm']} times for {calls} calls")
+    check(all(v == 0 for k, v in counts.items() if k != "mfma_gemm"),
+          f"the contract path launched other kernels: {counts}")
+    print(f"MFMA contract launches: {counts}")
+    return counts["mfma_gemm"]
+
+
 def draw_params(torch, cfg, seed: int, what: str):
     from repro_torch.models import init_params
     t0 = time.perf_counter()
@@ -1447,12 +1649,18 @@ def main() -> int:
         print(f"hybrid phase: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; routing "
               f"flips (sync step): {routing_hyb}")
+        del params
+        torch.cuda.empty_cache()
+
+        gemm, gemm_rows = gemm_records(torch)
+        gemm["launches"] = phase_mfma_contract(torch)
+        print(f"mfma_gemm timed shapes: {json.dumps(gemm_rows)}")
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [paged, flash, decode, moe, ssd]}))
+    print(json.dumps({"kernels": [paged, flash, decode, moe, ssd, gemm]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,12 @@
 """The port's hand-written Hopper kernels, their plain PyTorch versions
 and oracles.
 
-Ported so far (CUDA C++, ``csrc/``): ``flash_attention`` (prefill),
-``decode_attention`` (contiguous-cache decode),
-``paged_decode_attention`` (paged decode), ``moe_gmm`` (the MoE expert
-products) and ``mamba2_ssd`` (the SSM layers' chunked scan).  The
-reference's ``mfma_gemm`` is still to port (ROADMAP queue 2).
+All six of the reference's TPU kernels are ported (CUDA C++,
+``csrc/``): ``flash_attention`` (prefill), ``decode_attention``
+(contiguous-cache decode), ``paged_decode_attention`` (paged decode),
+``moe_gmm`` (the MoE expert products), ``mamba2_ssd`` (the SSM layers'
+chunked scan) and ``mfma_gemm`` (the paper's ``D = C + A @ B`` contract
+on the tensor cores).
 """
 
 from typing import Dict
@@ -17,17 +18,19 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
     LAUNCHES as _FLASH_LAUNCHES, flash_attention, flash_attention_plain)
 from repro_torch.kernels.mamba2_ssd import (  # noqa: F401
     LAUNCHES as _SSD_LAUNCHES, mamba2_ssd, mamba2_ssd_plain)
+from repro_torch.kernels.mfma_gemm import (  # noqa: F401
+    LAUNCHES as _MFMA_GEMM_LAUNCHES, mfma_gemm, mfma_gemm_plain)
 from repro_torch.kernels.moe_gmm import (  # noqa: F401
     LAUNCHES as _MOE_GMM_LAUNCHES, moe_gmm, moe_gmm_plain)
 
 __all__ = ["flash_attention", "flash_attention_plain", "decode_attention",
            "decode_attention_plain", "paged_decode_attention",
            "paged_decode_attention_plain", "moe_gmm", "moe_gmm_plain",
-           "mamba2_ssd", "mamba2_ssd_plain", "launch_counts",
-           "reset_launch_counts"]
+           "mamba2_ssd", "mamba2_ssd_plain", "mfma_gemm", "mfma_gemm_plain",
+           "launch_counts", "reset_launch_counts"]
 
 _COUNTERS = (_FLASH_LAUNCHES, _DECODE_LAUNCHES, _MOE_GMM_LAUNCHES,
-             _SSD_LAUNCHES)
+             _SSD_LAUNCHES, _MFMA_GEMM_LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

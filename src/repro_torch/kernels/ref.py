@@ -12,8 +12,14 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_ref", "decode_attention_ref",
+__all__ = ["mfma_gemm_ref", "flash_attention_ref", "decode_attention_ref",
            "paged_decode_attention_ref", "moe_gmm_ref", "mamba2_ssd_ref"]
+
+
+def mfma_gemm_ref(a, b, c):
+    """D = C + A @ B with f32 accumulation (the MFMA contract), in C's
+    dtype."""
+    return (c.float() + a.float() @ b.float()).to(c.dtype)
 
 
 def _grouped_full_attn(q, k, v, *, causal, kv_len=None):

@@ -50,7 +50,7 @@ _FLASH_BLOCK = 512
 _FLASH_MIN_T = 2048     # plain sdpa below this KV length
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 # the slice of ROADMAP queue 1 that ports what the kernels cannot take
-_MLA_SLICE = "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)"
+_MLA_SLICE = "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)"
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,

@@ -33,10 +33,10 @@ __all__ = ["Sig", "layer_sigs", "schedule", "init_norm", "init_mlp",
 Sig = Tuple[str, bool]
 
 _NOT_PORTED = {
-    "cross": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
-    "attn_cross": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
-    "enc_attn": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
-    "mla": "ROADMAP queue 1 item 10 (MLA, cross-attention and encoder)",
+    "cross": "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)",
+    "attn_cross": "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)",
+    "enc_attn": "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)",
+    "mla": "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)",
 }
 
 

@@ -24,7 +24,7 @@ steps below:
   page: models with SSM layers are served by the sync engine.
 
 :func:`forward` runs the ``train`` and ``prefill`` modes; the loss and
-the backward pass are the training slice (ROADMAP queue 1 item 12).
+the backward pass are the training slice (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations

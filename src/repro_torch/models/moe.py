@@ -21,7 +21,7 @@ Two paths for the three expert products, as in the reference:
   outputs stay in f32.
 
 The reference's sharding annotations have no counterpart here; the
-sharded path waits for the parallel slice (ROADMAP queue 1 item 13).
+sharded path waits for the parallel slice (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations

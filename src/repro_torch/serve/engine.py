@@ -16,7 +16,7 @@ at the end of ``generate``.  Temperature sampling draws from one
 ``torch.Generator`` seeded with ``seed`` on the engine's device; only
 greedy decoding is held to the reference.  The reference's ``extras``
 (media and frame embeddings) belong to the cross-attention and encoder
-slice (ROADMAP queue 1 item 10).
+slice (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations

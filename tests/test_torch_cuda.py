@@ -20,7 +20,11 @@ y in float32 atol 1e-3 plus rtol 1e-4 (f32 sums over up to 64 chunk rows
 and ds state columns, carried through exp of the cumulative decay, in
 other orders than the plain version's), in bfloat16 atol 1e-2 plus rtol
 2**-7 (both round the same f32 value once); the f32 state atol 1e-3
-plus rtol 1e-4 in both.
+plus rtol 1e-4 in both.  The MFMA GEMM, by C's dtype: float32 atol 1e-3
+plus rtol 1e-4 (the same exact products summed over up to 1032 terms in
+another order, and on the tensor cores with their own f32 accumulation
+rounding), bfloat16 atol 1e-2 plus rtol 2**-7 and float16 atol 1e-3 plus
+rtol 2**-10 (one ulp of C's dtype: both round one f32 sum once).
 """
 
 import dataclasses
@@ -31,10 +35,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import isa
+from repro_torch.core.functional import mfma_apply, random_operands
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  flash_attention, flash_attention_plain,
                                  launch_counts, mamba2_ssd,
-                                 mamba2_ssd_plain, moe_gmm, moe_gmm_plain,
+                                 mamba2_ssd_plain, mfma_gemm,
+                                 mfma_gemm_plain, moe_gmm, moe_gmm_plain,
                                  paged_decode_attention,
                                  paged_decode_attention_plain,
                                  reset_launch_counts)
@@ -354,3 +361,84 @@ def test_ssm_sync_engine_kernel_path_matches_plain_path(cuda, arch):
     assert all(d["near_tie"] for d in divergences(
         plain, reqs, p_res, k_res, engine=kernel,
         routing_margin=REDUCED_ROUTING_MARGIN))
+
+
+GEMM_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (1e-2, 2.0 ** -7),
+            torch.float16: (1e-3, 2.0 ** -10)}
+GEMM_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype", GEMM_DTYPES)
+@pytest.mark.parametrize("ab_dtype", GEMM_DTYPES)
+@pytest.mark.parametrize("M,N,K,offset", [
+    (100, 60, 200, 0),      # ragged M, N and K (N % 8 != 0: element loads)
+    (130, 136, 64, 0),      # K and N multiples of 8: the cp.async pipeline
+    (200, 264, 520, 0),     # pipeline: ragged tiles, a partial last slice
+    (8, 256, 1032, 0),      # pipeline: decode-like rows, 33 slices
+    (8, 72, 300, 1),        # decode-like rows; a, b and c not aligned
+])
+def test_mfma_gemm_kernel_matches_plain(cuda, M, N, K, offset, ab_dtype,
+                                        c_dtype):
+    g = torch.Generator().manual_seed(M + N + K)
+
+    def operand(shape, dt):
+        flat = _randn(g, math.prod(shape) + offset).to(dt).cuda()
+        return flat[offset:].view(shape)     # a contiguous view at offset
+
+    a, b = operand((M, K), ab_dtype), operand((K, N), ab_dtype)
+    c = operand((M, N), c_dtype)
+    assert (a.data_ptr() % 16 != 0) == bool(offset)
+    before = launch_counts()["mfma_gemm"]
+    got = mfma_gemm(a, b, c)
+    torch.cuda.synchronize()
+    assert launch_counts()["mfma_gemm"] == before + 1
+    want = mfma_gemm_plain(a, b, c)
+    assert torch.isfinite(got).all() and got.dtype == c_dtype
+    atol, rtol = GEMM_TOL[c_dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ab_dtype", GEMM_DTYPES)
+def test_mfma_gemm_accumulates_c_exactly(cuda, ab_dtype):
+    """Integer-valued operands make every product and partial sum exact
+    in f32, so C = 3 and C = 0 must give outputs exactly 3 apart."""
+    g = torch.Generator().manual_seed(11)
+    a = torch.randint(-4, 5, (96, 200), generator=g).to(ab_dtype).cuda()
+    b = torch.randint(-4, 5, (200, 72), generator=g).to(ab_dtype).cuda()
+    c0 = torch.zeros((96, 72), device="cuda")
+    d = mfma_gemm(a, b, c0 + 3.0) - mfma_gemm(a, b, c0)
+    assert bool((d == 3.0).all())
+
+
+@pytest.mark.cuda
+def test_mfma_gemm_rejects_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros((64, 32), device="cuda", dtype=torch.bfloat16)
+    c = torch.zeros((64, 16), device="cuda")
+    with pytest.raises(ValueError, match="incompatible operands"):
+        mfma_gemm(a, a, c)
+    with pytest.raises(ValueError, match="on cuda"):
+        mfma_gemm(a, a[:32, :16].contiguous(), c.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        mfma_gemm(a, a.t()[:, :16], c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n, i in isa.MFMA_REGISTRY.items()
+                                  if i.in_dtype in ("i8", "fp8")])
+def test_mfma_apply_on_the_card_matches_the_cpu(cuda, name):
+    """i8 instructions accumulate exactly into int32 on the card too (the
+    product is formed in float64, exact at these magnitudes); fp8
+    operands are cast to f32 before the product, as on the CPU."""
+    a, b, c = random_operands(name, seed=5, device="cuda")
+    got = mfma_apply(name, a, b, c)
+    want = mfma_apply(name, a.cpu(), b.cpu(), c.cpu())
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    if isa.lookup(name).out_dtype == "i32":
+        assert torch.equal(got.cpu(), want)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-6, atol=1e-6)

@@ -192,12 +192,15 @@ def test_moe_greedy_oracle_matches_reference(dtype):
 # it.
 #
 # jamba runs in float32 only here, as in tests/test_torch_model.py.  In
-# bfloat16 its logits carry a few percent of rounding noise between the
-# frameworks (four SSM layers amplify one-ulp flips, and its MoE routing
-# flips at near-ties), so a greedy stream can part from the reference's
-# at a top-2 margin above NEAR_TIE with every routing decision equal: one
-# request of this trace parts at a reference margin of 0.058.  The card
-# holds its bf16 streams to the port's plain path (chip_smoke.py).
+# bfloat16 two requests of this trace part from the reference's streams
+# at step 11, at top-2 margins of 0.061 and 0.051, above NEAR_TIE, with
+# the port's plain path as with its kernel path.  The prefill differs
+# only through the dense SwiGLU's SiLU, which XLA:CPU rounds at more
+# points than the port (test_jamba_bf16_layers_match_reference_but_for_
+# silu in tests/test_torch_model.py; with that SiLU emulated the bf16
+# prefill is bit for bit the reference's through all 8 layers); decode
+# then parts through the SSM state's f32 sums taken in other orders.  The
+# card holds its bf16 streams to the port's plain path (chip_smoke.py).
 
 SSM_ARCHS = {"mamba2": ("mamba2-370m", 2), "jamba": ("jamba-v0.1-52b", 3)}
 

@@ -98,3 +98,28 @@ def test_ssm_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cache(cfg, 1, 8)
+
+
+def test_mfma_contract_modules_import_clean():
+    """The MFMA contract slice's modules are part of the walk above and
+    load neither jax nor the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    for mod in ("repro_torch.core.isa", "repro_torch.core.functional",
+                "repro_torch.arch.spec", "repro_torch.arch.registry",
+                "repro_torch.kernels.mfma_gemm"):
+        assert mod in got["modules"]
+
+
+def test_mfma_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.core.functional import mfma_apply, random_operands
+    a, b, c = random_operands("fp32_16x16x4fp32", device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        random_operands("fp32_16x16x4fp32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mfma_apply("fp32_16x16x4fp32", a.numpy(), b.numpy(), c.numpy())

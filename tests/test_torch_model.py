@@ -361,8 +361,8 @@ def test_moe_paged_steps_match_reference(kernels):
 
 # -- SSM and hybrid: the reduced mamba2-370m and jamba-v0.1-52b --------------
 #
-# mamba2 in float32 and bfloat16, jamba in float32 only (its MoE routing
-# flips at near-ties under bf16 rounding, as qwen3-moe's does).  On the
+# mamba2 in float32 and bfloat16, jamba in float32 only as a whole model
+# (in bfloat16 it is held layer by layer, below).  On the
 # kernel paths the port's mamba2_ssd wrapper runs its plain version at
 # the chunk the reference's planner picks for the same shapes (the
 # ``reference_chunk`` fixture).
@@ -526,6 +526,86 @@ def test_ssm_prefill_and_decode_step_match_reference(name, dtype, kernels,
     _held(tdl, jdl, f32_dl)
     _held_cache(new, convert_cache(jax.tree.map(np.asarray, jnew),
                                    device="cpu"), f32_new)
+# jamba in bfloat16, layer by layer.  Whole-model bf16 jamba is not held
+# to the reference on the CPU (ROADMAP queue 3): over its 8 layers it
+# lies 6.5% (relative norm) from the reference's bf16 output, past the
+# 5e-2 yardstick, and the sync engine's streams part above the near-tie
+# margin.  The one rounding point that differs is the SwiGLU's SiLU in
+# the dense FFN layers.  ``jax.nn.silu`` is x * logistic(x), and XLA:CPU
+# evaluates a bf16 logistic as exp(-x), 1 + e and 1 / (1 + e), each
+# rounded to bf16, then rounds once more before the product; the port's
+# ``F.silu`` rounds once from f32.  So, fed the reference's own input,
+# each layer of the port gives the reference's bf16 output on all but a
+# handful of elements once its SiLU is evaluated the XLA:CPU way, while
+# with its own SiLU the dense FFN layers differ by more than one bf16 ulp
+# at about a quarter of their outputs.  The rest of the whole-model gap
+# is those few flips and f32 sums in other orders, amplified by random
+# weights and MoE routing near-ties.
+
+def _xla_cpu_silu(silu):
+    def emulated(x):
+        if x.dtype != torch.bfloat16:
+            return silu(x)
+        return x * (1 / (1 + torch.exp(-x)))    # each op rounds to bf16
+    return emulated
+
+
+def _beyond_one_ulp(port, ref) -> float:
+    """Fraction of bf16 outputs more than one bf16 ulp apart."""
+    a, b = port.float().numpy(), np.asarray(ref, np.float32)
+    m = np.maximum(np.abs(a), np.abs(b))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(m, 2.0 ** -126))) - 7)
+    return float((np.abs(a - b) > ulp).mean())
+
+
+@pytest.mark.parametrize("kernels", [False, True],
+                         ids=["plain", "kernels"])
+def test_jamba_bf16_layers_match_reference_but_for_silu(kernels,
+                                                        reference_chunk,
+                                                        monkeypatch):
+    from repro.models.blocks import apply_layer as jax_apply_layer
+    from repro.models.blocks import layer_sigs as jax_layer_sigs
+    from repro.models.model import _embed_in as jax_embed_in
+    from repro_torch.models.blocks import apply_layer, layer_sigs
+    jcfg, jparams, cfg, params = _ssm_models("jamba", "bfloat16", kernels)
+    toks = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (2, 45)).astype(np.int32)
+    first_k, period, n_periods = jax_schedule(jcfg)
+    assert first_k == 0
+    ws = [jax.tree.map(lambda x: x[p], jparams["layers"])[s]
+          for p in range(n_periods) for s in range(period)]
+    pos_j = jnp.arange(45, dtype=jnp.int32)
+    pos = torch.arange(45, dtype=torch.int32)
+    h = jax_embed_in(jcfg, jparams, jnp.asarray(toks))
+    silu = torch.nn.functional.silu
+    for i, (sig, jw, w) in enumerate(zip(jax_layer_sigs(jcfg), ws,
+                                         params["layers"])):
+        assert layer_sigs(cfg)[i] == sig
+        want, _ = jax_apply_layer(jcfg, sig, jw, h, mode="train",
+                                  positions=pos_j)
+        x = torch.from_numpy(np.asarray(h, np.float32)).to(torch.bfloat16)
+        own = _beyond_one_ulp(apply_layer(cfg, sig, w, x, mode="train",
+                                          positions=pos)[0], want)
+        monkeypatch.setattr(torch.nn.functional, "silu",
+                            _xla_cpu_silu(silu))
+        emulated = _beyond_one_ulp(apply_layer(cfg, sig, w, x,
+                                               mode="train",
+                                               positions=pos)[0], want)
+        monkeypatch.setattr(torch.nn.functional, "silu", silu)
+        if kernels and sig[0] == "attn":
+            # flash attention's plain version and the Pallas kernel agree
+            # to one ulp of the attention output (their own test), which
+            # the output projection spreads over more elements
+            h = want
+            continue
+        assert emulated < 2e-3, (i, sig, emulated)
+        if sig[1]:                  # an MoE FFN: no bf16 SiLU
+            assert own < 2e-3, (i, sig, own)
+        else:                       # the dense SwiGLU: the rounding point
+            assert own > 5e-2, (i, sig, own)
+        h = want
+
+
 @pytest.mark.parametrize("name,kernels", [("mamba2", False),
                                           ("mamba2", True),
                                           ("jamba", False), ("jamba", True)])
