@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line; a failed
+greedy-stream check lets the later phases run first, since none of them
+depends on it, so that one run reports every such failure):
 
 1. set-up: the card's name and power limit, and the CUDA kernels built
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. kernel check: each kernel against its plain PyTorch version on the
    card at the shapes the serving paths give it (paged decode at B = 8;
-   flash attention over a 2048-row causal prefill, a ragged 2000-row one
-   and one with kv_len < T; contiguous decode at B = 8 over a 2048-row
-   cache of mixed lengths, rows past them poisoned), then timed beside
+   flash attention over a 2048-row causal prefill, a ragged 2000-row one,
+   one with kv_len < T and one at qwen3-moe's grouping G = 16; contiguous
+   decode at B = 8 over a 2048-row cache of mixed lengths, rows past them
+   poisoned, at B = 4 and at B = 1 with length 2000), then timed beside
    the plain version, the PyTorch library call that computes the same
    function, and the least time the card could take;
 3. paged serve: ``PagedServeEngine`` on full-width qwen2-7b (random bf16
@@ -173,6 +176,18 @@ def check(ok: bool, msg: str) -> None:
         raise Failure(msg)
 
 
+DEFERRED: list = []     # failed checks that no later phase depends on
+
+
+def check_later(ok: bool, msg: str) -> None:
+    """A check whose failure the run reports at its end, after the later
+    phases, which do not depend on it; it fails the run all the same."""
+    if not ok:
+        print(f"chip_smoke: FAILED (the run goes on, and fails at its "
+              f"end): {msg}", file=sys.stderr)
+        DEFERRED.append(msg)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -231,6 +246,52 @@ def l2_flush(torch):
     50 MB L2 cache."""
     buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     return buf.zero_
+
+
+def device_ms(torch, fn, n: int, flush) -> float:
+    """Mean device time of ``fn``'s own kernels over ``n`` calls, each
+    after ``flush``, from a profiler trace that leaves the flush's fill
+    kernels out (``fn`` itself launches no integer fill): what the card
+    spends on a call whatever the host spends to launch it.  None when
+    the profiler records no kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as trace
+    fn()
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    got = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0
+           and "FillFunctor<int>" not in e.key]
+    if not got:
+        return None
+    return sum(e.self_device_time_total for e in got) / n / 1e3
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host time of one call of ``fn`` in microseconds: ``n`` calls
+    enqueued back to back, the card left to catch up after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def readings(rec, prefix: str = "") -> str:
+    """The profiler's and the host's readings of a timed call, printed
+    beside its event time."""
+    def ms(x):
+        return "not measured" if x is None else f"{x:.4f} ms"
+    return (f"{prefix}device {ms(rec['device_ms'])} (profiler), sdpa device "
+            f"{ms(rec['library_device_ms'])}; wrapper host time "
+            f"{rec['host_us']:.1f} us per call")
 
 
 # -- phase 1 --------------------------------------------------------------
@@ -362,6 +423,23 @@ def flash_records(torch, cfg):
         print(f"flash_attention {label} H={H} KV={KV} hd={hd} bf16: max abs "
               f"err {err:.3g}")
 
+    # qwen3-moe's grouping, 64 query heads over 4 KV heads of 128 (G = 16:
+    # all 16 rows of each warp's A fragment are heads of one group)
+    from repro_torch.configs import get_config
+    moe = get_config(MOE["arch"])
+    S = 1000
+    q = randn(1, S, moe.n_heads, moe.hd)
+    k, v = randn(1, S, moe.n_kv_heads, moe.hd), randn(1, S, moe.n_kv_heads,
+                                                        moe.hd)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = held_to_plain(torch, "flash_attention (G=16)", got,
+                        flash_attention_plain(q, k, v, causal=True))
+    max_abs_err = max(max_abs_err, err)
+    print(f"flash_attention causal S=T={S} H={moe.n_heads} KV="
+          f"{moe.n_kv_heads} hd={moe.hd} bf16 ({moe.name}'s grouping): max "
+          f"abs err {err:.3g}")
+
     S = 2048
     q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
     want = flash_attention_plain(q, k, v, causal=True)
@@ -379,6 +457,11 @@ def flash_records(torch, cfg):
     plain_ms = time_ms(torch, lambda: flash_attention_plain(
         q, k, v, causal=True), 10, flush)
     library_ms = time_ms(torch, library, 100, flush)
+    rec = {"device_ms": device_ms(
+        torch, lambda: flash_attention(q, k, v, causal=True), 50, flush),
+        "library_device_ms": device_ms(torch, library, 50, flush),
+        "host_us": host_us(torch, lambda: flash_attention(q, k, v,
+                                                          causal=True))}
     pairs = S * (S + 1) // 2                  # (query, key) pairs unmasked
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 4 * pairs * H * hd                # q.k and p.v, 2 flops a MAC
@@ -386,7 +469,8 @@ def flash_records(torch, cfg):
     print(f"flash_attention causal S=T={S}: kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
           f"{library_ms:.4f} ms (max abs err vs plain {lib_err:.3g}), bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} flops)")
+          f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} flops); "
+          + readings(rec))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:85",
@@ -399,8 +483,8 @@ def decode_record(torch, cfg):
     """Contiguous-cache decode at full width: B = 8 requests over a
     2048-row bf16 cache, lengths from 1 to 2048 with the rows past them
     poisoned (timed); then B = 4 at one scalar length, the shape of the
-    sync engine's batched decode step."""
-    import torch.nn.functional as F
+    sync engine's batched decode step; then B = 1 at length 2000, the
+    shape of ``run(batch=1)``'s step (timed too)."""
     from repro_torch.kernels import decode_attention, decode_attention_plain
     g = torch.Generator(device="cuda").manual_seed(3)
     H, KV, hd, T = cfg.n_heads, cfg.n_kv_heads, cfg.hd, 2048
@@ -429,6 +513,46 @@ def decode_record(torch, cfg):
           f"{lens_list}: max abs err {max_abs_err:.3g}, poisoned rows "
           "ignored")
 
+    k1, v1 = k[:1].clone(), v[:1].clone()
+    k1[:, 2000:], v1[:, 2000:] = 30.0, -30.0
+    b1 = decode_timing(torch, q[:1], k1, v1, torch.tensor(
+        [2000], dtype=torch.int32, device="cuda"))
+    max_abs_err = max(max_abs_err, b1["max_abs_err"])
+    print(f"decode_attention B=1 kv_len 2000 (the run(batch=1) step): "
+          f"max abs err {b1['max_abs_err']:.3g}; kernel {b1['ms']:.4f} ms, "
+          f"plain {b1['plain_ms']:.4f} ms, sdpa {b1['library_ms']:.4f} ms "
+          f"(max abs err vs plain {b1['lib_err']:.3g}), bound "
+          f"{b1['bound_ms']:.5f} ms ({b1['bound_by']}: {b1['nbytes']} bytes); "
+          + readings(b1))
+    rec = decode_timing(torch, q, k, v, lens, want)
+    print(f"decode_attention: kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms (max "
+          f"abs err vs plain {rec['lib_err']:.3g}), bound "
+          f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: {rec['nbytes']} "
+          f"bytes, {rec['flops']} flops); " + readings(rec))
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:100",
+            "launches": None, "max_abs_err": max_abs_err, "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+
+
+def decode_timing(torch, q, k, v, lens, want=None):
+    """Time ``decode_attention`` on (q, k, v, lens) beside its plain
+    version and SDPA with a length mask, and compute its bound; with no
+    ``want`` given, first hold the kernel to the plain version."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, decode_attention_plain
+    B, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    rec = {}
+    if want is None:
+        got = decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        want = decode_attention_plain(q, k, v, lens)
+        rec["max_abs_err"] = held_to_plain(
+            torch, f"decode_attention (B={B})", got, want)
     mask = (torch.arange(T, device="cuda")[None, :]
             < lens[:, None].long())[:, None, None, :]
     q_lib, k_lib, v_lib = q[:, :, None, :], k.transpose(1, 2), \
@@ -439,27 +563,24 @@ def decode_record(torch, cfg):
                                               attn_mask=mask,
                                               enable_gqa=True)
 
-    lib_err = float((library()[:, :, 0].float() - want.float()).abs().max())
+    rec["lib_err"] = float((library()[:, :, 0].float()
+                            - want.float()).abs().max())
     flush = l2_flush(torch)
-    ms = time_ms(torch, lambda: decode_attention(q, k, v, lens), 100, flush)
-    plain_ms = time_ms(torch, lambda: decode_attention_plain(q, k, v, lens),
-                       20, flush)
-    library_ms = time_ms(torch, library, 100, flush)
-    rows = sum(lens_list)
+    rec["ms"] = time_ms(torch, lambda: decode_attention(q, k, v, lens), 100,
+                        flush)
+    rec["plain_ms"] = time_ms(
+        torch, lambda: decode_attention_plain(q, k, v, lens), 20, flush)
+    rec["library_ms"] = time_ms(torch, library, 100, flush)
+    rec["device_ms"] = device_ms(
+        torch, lambda: decode_attention(q, k, v, lens), 50, flush)
+    rec["library_device_ms"] = device_ms(torch, library, 50, flush)
+    rec["host_us"] = host_us(torch, lambda: decode_attention(q, k, v, lens))
+    rows = int(lens.sum())
     el = q.element_size()
-    nbytes = 2 * q.numel() * el + B * 4 + 2 * rows * KV * hd * el
-    flops = 4 * rows * H * hd
-    bound_ms, bound_by = bound(nbytes, flops)
-    print(f"decode_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms (max abs err vs plain {lib_err:.3g}), "
-          f"bound {bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} "
-          "flops)")
-    return {"name": "decode_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/decode_attention.cu",
-            "replaces": "src/repro/kernels/decode_attention.py:100",
-            "launches": None, "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    rec["nbytes"] = 2 * q.numel() * el + B * 4 + 2 * rows * KV * hd * el
+    rec["flops"] = 4 * rows * H * hd
+    rec["bound_ms"], rec["bound_by"] = bound(rec["nbytes"], rec["flops"])
+    return rec
 
 
 # -- phase 3 --------------------------------------------------------------
@@ -626,8 +747,8 @@ def streams_check(torch, eng, plain, reqs, results, *, enforce=True):
           f"diverge at near-ties (top-2 margin < {NEAR_TIE}), "
           f"{len(div) - n_tie} above")
     if enforce:
-        check(n_tie == len(div), f"greedy streams diverge above the "
-              f"{NEAR_TIE} near-tie margin")
+        check_later(n_tie == len(div), f"{eng.cfg.name}: greedy streams "
+                    f"diverge above the {NEAR_TIE} near-tie margin")
 
 
 def paged_logit_check(torch, cfg, plain_cfg, params, reqs):
@@ -1655,6 +1776,7 @@ def main() -> int:
         gemm, gemm_rows = gemm_records(torch)
         gemm["launches"] = phase_mfma_contract(torch)
         print(f"mfma_gemm timed shapes: {json.dumps(gemm_rows)}")
+        check(not DEFERRED, "; ".join(DEFERRED))
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -65,11 +65,18 @@
 #include <cstdint>
 
 #include "attention_common.cuh"  // to_f32 / from_f32 over the storage types
+#include "mma_common.cuh"        // mma.sync, ldmatrix and cp.async
 
 namespace {
 
 using attn::from_f32;
 using attn::to_f32;
+using mma::cp_async16;
+using mma::cp_async_commit;
+using mma::cp_async_wait;
+using mma::ldmatrix_x4;
+using mma::ldmatrix_x4_trans;
+using mma::Mma;
 
 constexpr int kBM = 64;  // output rows per block
 constexpr int kBN = 64;  // output columns per block
@@ -82,52 +89,6 @@ constexpr int kBK = 32;  // contraction depth per shared-memory slice
 constexpr int kMmaThreads = 128;  // 4 warps, 2 x 2, each a 32 x 32 sub-tile
 constexpr int kLdA = kBK + 8;     // A slice row: 40 elements (80 bytes)
 constexpr int kLdB = kBN + 8;     // B slice row: 72 elements (144 bytes)
-
-// d = a.b + d on one m16n8k16 fragment (f32 accumulators).
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-// Four 8 x 8 matrices of 16-bit elements from shared memory, each row of
-// 16 bytes named by one lane (lanes 8 q .. 8 q + 7 name matrix q's rows);
-// thread l receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of each
-// matrix, or with .trans the same of its transpose.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const uint16_t* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 // Operands are moved as raw 16-bit patterns: zero bits are +0 in bf16 and
 // f16 alike, and only the mma instruction reads them as numbers.
@@ -245,22 +206,6 @@ constexpr int kPLdB = kPN + 8;    // B slice row: 136 elements (272 bytes)
 constexpr int kStageA = kPM * kPLdA;
 constexpr int kStageElems = kStageA + kBK * kPLdB;
 constexpr size_t kPSmem = (size_t)kStages * kStageElems * sizeof(uint16_t);
-
-// 16 bytes from global to shared memory without passing through registers;
-// when !valid nothing is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(uint16_t* dst, const uint16_t* src, bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(addr), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <typename TA, typename TC>
 __global__ void __launch_bounds__(kPThreads)

@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_ENTRY: Dict[str, tuple] = {}     # name -> (launch function, its argtypes)
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
@@ -127,14 +128,18 @@ def launch(name: str, argtypes, *args) -> None:
     """Call ``<name>_launch(*args)`` in kernel ``name``'s library (built
     first if needed); raise ``RuntimeError`` with CUDA's message when the
     launch returns an error (a refused launch never runs, and a later
-    synchronize would not report it)."""
-    lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    synchronize would not report it).  The function and its argument
+    types are set up once per kernel, not on every launch."""
+    argtypes = tuple(argtypes)
+    fn, types = _ENTRY.get(name, (None, None))
+    if fn is None or types != argtypes:
+        fn = getattr(load(name), f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _ENTRY[name] = (fn, argtypes)
     err = fn(*args)
     if err:
-        msg_fn = getattr(lib, f"{name}_error_string")
+        msg_fn = getattr(load(name), f"{name}_error_string")
         msg_fn.restype = ctypes.c_char_p
         msg_fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{name}: kernel launch failed: "

@@ -10,15 +10,32 @@ cache, its G = H / KV query heads of a group together:
   ``block_tables[b, 0 .. ceil(kv_len/page))``; the paged serve engine
   runs it once per layer on every decode tick.
 
-On a CUDA tensor each wrapper launches its kernel
-(``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu``, which
-share their loop through ``csrc/attention_common.cuh``; built on first
-use) or raises.  On a CPU tensor it runs its plain version, the same tile
-loop written with PyTorch ops: same tile order, same masks, same f32
-online softmax and the same roundings to V's dtype.  The CPU tests hold
-the plain versions against the reference's Pallas kernels in interpret
-mode, and ``chip_smoke.py`` holds the CUDA kernels against them on the
-card.
+On a CUDA tensor each wrapper launches its kernel (built on first use)
+or raises:
+
+* ``csrc/decode_attention.cu`` cuts each request's cache into splits of
+  :func:`kernel_split_rows` rows, a block per (split, KV head, request),
+  bf16/f16 products on the tensor cores (``mma.sync``; p as a high and a
+  low half, so that it keeps f32's precision), each split's
+  unnormalised state in f32 scratch; the last block of a (request, KV
+  head) to finish, found by an atomic ticket (counters the kernel
+  resets), combines the splits.  The wrapper draws the scratch and the
+  tickets once per (device, stream) and keeps them.  One launch, one
+  count;
+* ``csrc/paged_decode_attention.cu`` walks a request's pages in one
+  block (its loop in ``csrc/attention_common.cuh``).
+
+On a CPU tensor each runs its plain version (:func:`_tile_walk`, the
+tile loop written with PyTorch ops: same tile order, same masks, same
+f32 online softmax and the same roundings as its kernel).  The paged one
+rounds as the reference does: scores ``(q * scale) . k``, p and each
+tile's PV product rounded to V's dtype.  The contiguous one walks the
+kernel's splits and combines them as the kernel does, forms its scores
+as ``(q . k) * scale`` and keeps p and PV in f32, so that only its
+output is rounded, as the tensor-core kernel does.  The CPU
+tests hold the plain versions against the reference's Pallas kernels in
+interpret mode, and ``chip_smoke.py`` holds the CUDA kernels against
+them on the card.
 
 ``LAUNCHES`` counts kernel launches by kernel name (plain runs are not
 counted), so a run can show that its decode steps went through the
@@ -29,40 +46,48 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
+from repro_torch.arch import get_device
 from repro_torch.kernels import build
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
-           "LAUNCHES", "TILE"]
+           "kernel_split_rows", "LAUNCHES", "TILE"]
 
 NAME = "paged_decode_attention"
 DECODE = "decode_attention"
 LAUNCHES: Dict[str, int] = {DECODE: 0, NAME: 0}
 TILE = 64             # cache rows per step of the contiguous kernel (kTile)
+BLOCKS_PER_SM = 2     # the contiguous kernel's target, as splits allow
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
+_DECODE_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_SCRATCH: Dict[tuple, tuple] = {}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HD = 256
 
 
-def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, kv_len):
-    """The kernel's page loop in PyTorch ops, vectorised over requests and
-    KV heads.  A request whose pages are exhausted keeps its state while
-    longer requests go on, as the kernel's per-request page count does;
-    rows past ``kv_len`` are masked and their V rows zeroed, so stale or
+def _tile_walk(qf, k_pool, v_pool, tables, lens, scale=None,
+               round_to_v=True):
+    """The kernels' tile loop in PyTorch ops, vectorised over requests and
+    KV heads: qf (B, KV, G, hd) f32 attends pool blocks
+    ``tables[b, 0 .. ceil(lens[b]/page))`` and returns the online
+    softmax's state (m, l, acc), (B, KV, G, 1), (B, KV, G, 1) and
+    (B, KV, G, hd) f32.  Scores are ``qf . k``, times ``scale`` when one
+    is given.  With ``round_to_v`` (the paged kernel, as the reference)
+    p is rounded to V's dtype before PV and each tile's PV product before
+    it joins ``acc * corr``; without (the contiguous kernel) both stay
+    f32.  A request whose pages are exhausted keeps its state while
+    longer requests go on, as the kernels' per-request page count does;
+    rows past ``lens`` are masked and their V rows zeroed, so stale or
     poisoned rows never reach the result."""
-    B, H, hd = q.shape
-    page, KV = k_pool.shape[1], k_pool.shape[2]
-    G = H // KV
-    scale = 1.0 / math.sqrt(hd)
-    dev = q.device
-    lens = kv_len.to(device=dev, dtype=torch.long)
-    tables = block_tables.to(device=dev, dtype=torch.long)
-    qf = q.reshape(B, KV, G, hd).float() * scale
+    B, KV, G, hd = qf.shape
+    page = k_pool.shape[1]
+    dev = qf.device
     m = torch.full((B, KV, G, 1), _NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KV, G, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KV, G, hd), dtype=torch.float32, device=dev)
@@ -74,17 +99,36 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, kv_len):
         v = torch.where(valid[:, :, None, None], v_pool[tables[:, j]],
                         torch.zeros((), dtype=v_pool.dtype, device=dev))
         s = torch.einsum("bkgd,btkd->bkgt", qf, k)
+        if scale is not None:
+            s = s * scale
         s = torch.where(valid[:, None, None, :], s, _NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l_new = l * corr + p.sum(-1, keepdim=True)
-        pv = torch.einsum("bkgt,btkd->bkgd", p.to(v.dtype).float(), v.float())
-        acc_new = acc * corr + pv.to(v.dtype).float()
+        if round_to_v:
+            p = p.to(v.dtype).float()
+        pv = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+        if round_to_v:
+            pv = pv.to(v.dtype).float()
+        acc_new = acc * corr + pv
         live = (j * page < lens)[:, None, None, None]
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
         acc = torch.where(live, acc_new, acc)
+    return m, l, acc
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, kv_len):
+    """The paged kernel's loop (:func:`_tile_walk` over the request's
+    pages, the page being the tile) with its score numerics,
+    ``(q * scale) . k``, normalised as ``acc / max(l, 1e-30)``."""
+    B, H, hd = q.shape
+    KV = k_pool.shape[2]
+    qf = q.reshape(B, KV, H // KV, hd).float() * (1.0 / math.sqrt(hd))
+    _, l, acc = _tile_walk(
+        qf, k_pool, v_pool, block_tables.to(device=q.device, dtype=torch.long),
+        kv_len.to(device=q.device, dtype=torch.long))
     out = acc / torch.clamp(l, min=1e-30)
     return out.to(q.dtype).reshape(B, H, hd)
 
@@ -170,24 +214,66 @@ def _lens(kv_len, B: int, T: int, device) -> torch.Tensor:
                       device=device)
 
 
-def decode_attention_plain(q, k, v, kv_len, *,
-                           block_kv: int = TILE) -> torch.Tensor:
-    """The kernel's tile loop in PyTorch ops: request b's cache is walked
-    in tiles of ``block_kv`` rows, which is the paged loop over a pool
-    whose page is the tile and whose table lists b's tiles in order (the
-    cache's ragged tail is zero-padded to a whole tile and masked)."""
+def kernel_split_rows(T: int, batch_kv: int) -> int:
+    """Rows R of one split of the contiguous kernel for a cache of T rows
+    and ``batch_kv`` = B * KV (request, KV head) pairs: a multiple of the
+    64-row tile, at least two tiles (below that a split's fixed costs
+    outweigh its rows), and otherwise small enough that
+    ``BLOCKS_PER_SM`` blocks an SM of the port's card (the ``h100``
+    spec's SMs) run when every split is live.  Read from the shapes
+    alone: the lengths live on the card, and reading them would stall
+    every decode step on a copy to the host."""
+    sms = get_device("h100").cu_count
+    splits = -(-BLOCKS_PER_SM * sms // max(batch_kv, 1))
+    rows = -(-T // splits)
+    return max(2 * TILE, -(-rows // TILE) * TILE)
+
+
+def decode_attention_plain(q, k, v, kv_len, *, block_kv: int = TILE,
+                           split_rows: Optional[int] = None
+                           ) -> torch.Tensor:
+    """The kernel's loop in PyTorch ops.  Request b's rows are cut into
+    splits of ``split_rows`` rows (default: the kernel's,
+    :func:`kernel_split_rows`); each split is walked from m = -inf in
+    tiles of ``block_kv`` rows (the last cut at the split's end), the
+    paged loop over a pool whose page is the tile; then the splits are
+    combined in f32, in order: M = max m_s, L = sum l_s e^(m_s - M),
+    out = sum acc_s e^(m_s - M) / max(L, 1e-30).  With
+    ``split_rows >= T`` this is one walk of the whole cache."""
     B, T, KV, hd = k.shape
-    nt = -(-T // block_kv)
-    pad = nt * block_kv - T
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    tables = torch.arange(B * nt, dtype=torch.int32,
-                          device=q.device).reshape(B, nt)
-    return paged_decode_attention_plain(
-        q, k.reshape(B * nt, block_kv, KV, hd),
-        v.reshape(B * nt, block_kv, KV, hd), tables,
-        _lens(kv_len, B, T, q.device))
+    H = q.shape[1]
+    G = H // KV
+    R = kernel_split_rows(T, B * KV) if split_rows is None \
+        else int(split_rows)
+    if R < 1:
+        raise ValueError(f"{DECODE}: split_rows must be positive, got {R}")
+    ns = -(-T // R)
+    nt = -(-R // block_kv)               # tiles of a split, the last cut
+    lens = _lens(kv_len, B, T, q.device).long()
+
+    def splits(x):              # (B, T, KV, hd) -> (B * ns * nt, bk, KV, hd)
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, ns * R - T))
+        x = x.reshape(B * ns, R, KV, hd)
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, nt * block_kv - R))
+        return x.reshape(B * ns * nt, block_kv, KV, hd)
+
+    starts = torch.arange(ns, device=q.device) * R
+    split_lens = (lens[:, None] - starts[None, :]).clamp(0, R).reshape(-1)
+    tables = torch.arange(B * ns * nt, device=q.device).reshape(B * ns, nt)
+    qf = q.reshape(B, 1, KV, G, hd).float().expand(B, ns, KV, G, hd)
+    m, l, acc = _tile_walk(qf.reshape(B * ns, KV, G, hd), splits(k),
+                           splits(v), tables, split_lens,
+                           scale=1.0 / math.sqrt(hd), round_to_v=False)
+    m, l, acc = (x.reshape(B, ns, KV, G, -1) for x in (m, l, acc))
+    M = m.amax(1)
+    L = torch.zeros_like(M)
+    out = torch.zeros_like(acc[:, 0])
+    for s in range(ns):
+        w = torch.exp(m[:, s] - M)
+        L = L + l[:, s] * w
+        out = out + acc[:, s] * w
+    out = out / torch.clamp(L, min=1e-30)
+    return out.to(q.dtype).reshape(B, H, hd)
 
 
 def _check_decode(q, k, v, kv_len) -> None:
@@ -224,20 +310,47 @@ def _check_decode(q, k, v, kv_len) -> None:
         raise ValueError(f"{DECODE}: operands must be contiguous")
 
 
+def _scratch(device, stream: int, n_tickets: int, n_state: int):
+    """The kernel's scratch for launches on ``stream``: its (request, KV
+    head, fragment) tickets, zero between launches (the last block of
+    each group resets its own), and the f32 split state each launch
+    writes before it reads it.  Drawn once a stream and kept, grown when
+    a launch needs more, because launches on one stream never overlap;
+    keeping them spares every decode step two allocations on the host."""
+    key = (device, stream)
+    tickets, state = _SCRATCH.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 1024), dtype=torch.int32,
+                              device=device)
+    if state is None or state.numel() < n_state:
+        state = torch.empty(n_state, dtype=torch.float32, device=device)
+    _SCRATCH[key] = (tickets, state)
+    return tickets, state
+
+
 def _decode_kernel(q, k, v, kv_len) -> torch.Tensor:
     B, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     per_request = isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1
     lens = kv_len.data_ptr() if per_request else None      # NULL: scalar
     scalar = 0 if per_request else min(int(kv_len), T)
+    R = kernel_split_rows(T, B * KV)
+    cells = B * H * -(-T // R)           # (request, head, split)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        build.launch(DECODE, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-                     q.data_ptr(), k.data_ptr(), v.data_ptr(), lens,
-                     out.data_ptr(), B, H, KV, hd, T, scalar,
-                     1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype],
-                     torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # each split's f32 state: acc (B, H, ns, hd), then m and l (B, H, ns)
+    tickets, state = _scratch(q.device, stream,
+                              B * KV * -(-(H // KV) // 16), cells * (hd + 2))
+    acc = state.data_ptr()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens, out.data_ptr(),
+            acc, acc + 4 * cells * hd, acc + 4 * cells * (hd + 1),
+            tickets.data_ptr(), B, H, KV, hd, T, scalar, R,
+            1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], stream)
+    if q.device.index == torch.cuda.current_device():
+        build.launch(DECODE, _DECODE_ARGS, *args)
+    else:
+        with torch.cuda.device(q.device):
+            build.launch(DECODE, _DECODE_ARGS, *args)
     LAUNCHES[DECODE] += 1
     return out
 

@@ -6,10 +6,18 @@ The sync serve engine runs this once per layer on every prefill: q
 heads, causally or not, with key rows at or past ``kv_len`` masked.
 
 * On a CUDA tensor :func:`flash_attention` launches the kernel in
-  ``csrc/flash_attention.cu`` (built on first use) or raises.
+  ``csrc/flash_attention.cu`` (built on first use) or raises: for bf16
+  and f16, FlashAttention-2's shape on the tensor cores (``mma.sync``,
+  64-row K/V tiles through a cp.async ring, p as a high and a low half so
+  that it keeps f32's precision); for f32, a CUDA-core kernel.
 * On a CPU tensor it runs :func:`flash_attention_plain`, the same tile
   loop written with PyTorch ops: same tile order, same masks, same f32
-  online softmax and the same roundings to V's dtype.  The CPU tests
+  online softmax.  Scores are ``(q . k) * scale``, as the kernel forms
+  them (bf16 products are exact on the tensor cores); the reference
+  scales q first, and the two differ by f32 rounding only.  p and each
+  tile's PV product stay f32, where the reference rounds both to V's
+  dtype: only the output is rounded, as in the model's plain path
+  (``models.attention._flash_sdpa``).  The CPU tests
   hold it against the reference's Pallas kernel in interpret mode (at
   the reference plan's ``block_kv``), and ``chip_smoke.py`` holds the
   CUDA kernel against it on the card (at the kernel's own tile).
@@ -58,8 +66,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = H // KV
     dev = q.device
     n = T if kv_len is None else max(0, min(int(kv_len), T))
-    qf = q.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4).float() \
-        * (1.0 / math.sqrt(hd))                               # (B,KV,G,S,hd)
+    scale = 1.0 / math.sqrt(hd)
+    # (B, KV, G, S, hd); scores are (q . k) * scale, as in the kernel
+    qf = q.reshape(B, S, KV, G, hd).permute(0, 2, 3, 1, 4).float()
     m = torch.full((B, KV, G, S, 1), _NEG_INF, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((B, KV, G, S, 1), dtype=torch.float32, device=dev)
@@ -72,7 +81,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         t0, t1 = j * block_kv, min((j + 1) * block_kv, n)
         kt = k[:, t0:t1].permute(0, 2, 1, 3).float()          # (B,KV,w,hd)
         vt = v[:, t0:t1].permute(0, 2, 1, 3)
-        s = torch.einsum("bkgsd,bktd->bkgst", qf, kt)
+        s = torch.einsum("bkgsd,bktd->bkgst", qf, kt) * scale
         if causal:
             cols = torch.arange(t0, t1, device=dev)[None, :]
             s = torch.where(cols <= rows, s, _NEG_INF)
@@ -80,9 +89,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        pv = torch.einsum("bkgst,bktd->bkgsd", p.to(v.dtype).float(),
-                          vt.float())
-        acc = acc * corr + pv.to(v.dtype).float()
+        pv = torch.einsum("bkgst,bktd->bkgsd", p, vt.float())
+        acc = acc * corr + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
     return out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)

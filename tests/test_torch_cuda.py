@@ -9,7 +9,9 @@ reference, so it runs on a GPU machine with only PyTorch:
 
 Tolerance: bfloat16 atol 1e-2 (about one bf16 ulp at the outputs'
 magnitude; a kernel and its plain version round at the same points but
-sum in different orders), plus rtol 2**-7 (one bf16 ulp at any
+sum in different orders, and the flash and contiguous decode kernels
+carry p as two halves in its dtype, within 2**-16 of the plain version's
+f32 p), plus rtol 2**-7 (one bf16 ulp at any
 magnitude) for the flash and contiguous decode kernels, whose outputs
 reach |x| >= 2 where an ulp is 2**-6; float32 atol 1e-5 (1e-4 for flash
 attention, whose sums run over up to 300 keys).  The MoE grouped GEMM:
@@ -45,6 +47,7 @@ from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  paged_decode_attention,
                                  paged_decode_attention_plain,
                                  reset_launch_counts)
+from repro_torch.kernels.decode_attention import kernel_split_rows
 from repro_torch.models import init_params
 from repro_torch.serve import OK, PagedServeEngine, ServeEngine, get_trace
 from repro_torch.serve.parity import divergences
@@ -130,6 +133,9 @@ def _randn(g, *shape):
     (7, 128, 130, 130, True, 100),
     (7, 128, 70, 300, False, 257),
     (2, 32, 1, 65, False, None),
+    (4, 128, 200, 200, True, None),       # jamba's grouping
+    (16, 128, 300, 300, True, 257),       # qwen3-moe's grouping
+    (16, 64, 130, 200, False, None),
 ])
 def test_flash_kernel_matches_plain(cuda, G, hd, S, T, causal, kv_len,
                                     dtype):
@@ -157,6 +163,10 @@ def test_flash_kernel_matches_plain(cuda, G, hd, S, T, causal, kv_len,
 @pytest.mark.parametrize("G,hd,T,per_request", [
     (1, 32, 64, True), (2, 64, 200, False), (7, 128, 300, True),
     (8, 256, 130, True),
+    (4, 128, 300, True),        # jamba's grouping
+    (16, 128, 300, True),       # qwen3-moe's: one full A fragment
+    (20, 96, 200, True),        # two A fragments, the second 4 heads
+    (7, 160, 300, False),
 ])
 def test_decode_kernel_matches_plain(cuda, G, hd, T, per_request, dtype):
     g = torch.Generator().manual_seed(G * hd + T)
@@ -178,6 +188,60 @@ def test_decode_kernel_matches_plain(cuda, G, hd, T, per_request, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=RTOL[dtype],
                                atol=ATOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,G,T", [(1, 7, 2048), (6, 7, 2048), (6, 16, 700)])
+def test_decode_kernel_split_edges(cuda, B, G, T, dtype):
+    """Lengths at the edges of the kernel's splits (kernel_split_rows):
+    0, 1, R, R + 1, 2 R - 1 and T, and B = 1 over a long cache (2000 of
+    2048 rows: the run(batch=1) step).  Rows past a length are never
+    read."""
+    KV, hd = 4, 128
+    R = kernel_split_rows(T, B * KV)
+    edges = [2000] if B == 1 else [0, 1, R, R + 1, 2 * R - 1, T]
+    g = torch.Generator().manual_seed(B * T + G)
+    q = _randn(g, B, G * KV, hd)
+    k, v = _randn(g, B, T, KV, hd), _randn(g, B, T, KV, hd)
+    for b, n in enumerate(edges):
+        k[b, n:], v[b, n:] = float("nan"), float("inf")
+    q, k, v = (t.to(dtype).cuda() for t in (q, k, v))
+    lens = torch.tensor(edges, dtype=torch.int32).cuda()
+    got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    want = decode_attention_plain(q, k, v, lens)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=RTOL[dtype],
+                               atol=ATOL[dtype])
+
+
+@pytest.mark.cuda
+def test_decode_kernel_scratch_kept_per_stream(cuda):
+    """The wrapper keeps its split state and tickets per stream and grows
+    them: small, large, then small again on one stream, and one call on a
+    second stream, each equal to the plain version."""
+    KV, hd = 4, 128
+    g = torch.Generator().manual_seed(5)
+    side = torch.cuda.Stream()
+    for B, G, T, stream in [(1, 7, 256, None), (8, 16, 2048, None),
+                            (2, 7, 512, None), (8, 16, 2048, side)]:
+        q = _randn(g, B, G * KV, hd).to(torch.bfloat16).cuda()
+        k = _randn(g, B, T, KV, hd).to(torch.bfloat16).cuda()
+        v = _randn(g, B, T, KV, hd).to(torch.bfloat16).cuda()
+        lens = torch.randint(0, T + 1, (B,), generator=g, dtype=torch.int32
+                             ).cuda()
+        with torch.cuda.stream(stream or torch.cuda.current_stream()):
+            if stream is not None:
+                stream.wait_stream(torch.cuda.default_stream())
+            got = decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        want = decode_attention_plain(q, k, v, lens)
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=RTOL[torch.bfloat16],
+                                   atol=ATOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

@@ -5,15 +5,20 @@ against the plain oracle, plus the wrapper's contracts.
 Cases cover causal and non-causal attention, ragged S and T (the
 reference pads them onto its 128-row tiles through
 ``repro.kernels.ops.flash_attention(pad=True)``; the port masks them
-inside its loop), ``kv_len < T``, and group sizes G in {1, 2}.  The
-plain version runs at the reference's pinned ``block_kv`` of 128, so the
-two round p and each tile's PV product at the same points.
+inside its loop), ``kv_len < T``, and group sizes G in {1, 2, 4, 16}
+(jamba's G = 4 and qwen3-moe's G = 16 at head dim 128).  The plain
+version runs at the reference's pinned ``block_kv`` of 128, so the two
+walk the same tiles; it forms its scores as ``(q . k) * scale``, the
+kernel's order, where the reference scales q first, which differs by
+f32 rounding only, and it keeps p and each tile's PV product in f32,
+where the reference rounds both to V's dtype.
 
 Tolerances: float32 atol 1e-4 (summation order).  bfloat16 atol 1e-2
-plus rtol 2**-7, which is one bf16 ulp at any magnitude: the two round
-the same values at the same points but sum them in different orders, so
-an output may land one ulp apart, and at |x| >= 2 one ulp (2**-6) is
-more than 1e-2.  The CUDA kernel is held to the plain version on the
+plus rtol 2**-7, which is one bf16 ulp at any magnitude: the
+reference's roundings of p and of each tile's PV product (each within
+half an ulp of what it rounds) and the two outputs' own rounding may
+put an output one ulp apart, and at |x| >= 2 one ulp (2**-6) is more
+than 1e-2.  The CUDA kernel is held to the plain version on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -40,6 +45,8 @@ CASES = {
     "causal_kv_len_g2": (1, 200, 200, 4, 2, 32, True, 150),
     "noncausal_s_ne_t_g1": (1, 96, 256, 2, 2, 64, False, None),
     "noncausal_kv_len_g1": (2, 130, 250, 4, 4, 32, False, 177),
+    "causal_g4_hd64": (1, 130, 130, 8, 2, 64, True, None),      # jamba's G
+    "causal_kv_len_g16_hd128": (1, 200, 200, 16, 1, 128, True, 150),
 }
 
 

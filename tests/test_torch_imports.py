@@ -43,6 +43,30 @@ def test_port_and_chip_smoke_never_import_jax_or_reference():
         assert mod in got["modules"]
 
 
+_STUDY_PROBE = r"""
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location(
+    "torch_sync_study", sys.argv[1] + "/scripts/torch_sync_study.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+import repro_torch.serve, repro_torch.models
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"leaked": leaked, "main": callable(mod.main)}))
+"""
+
+
+def test_sync_study_script_never_imports_jax_or_reference():
+    """``scripts/torch_sync_study.py`` runs on the card beside
+    chip_smoke.py: loading it, and the port it drives, loads no jax."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _STUDY_PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "main": True}
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.models import init_cache, init_params
