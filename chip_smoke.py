@@ -10,13 +10,16 @@ depends on it, so that one run reports every such failure):
 1. set-up: the card's name and power limit, and the CUDA kernels built
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. kernel check: each kernel against its plain PyTorch version on the
-   card at the shapes the serving paths give it (paged decode at B = 8;
+   card at the shapes the serving paths give it (paged decode at B = 8,
+   its unused table slots on a poisoned null block;
    flash attention over a 2048-row causal prefill, a ragged 2000-row one,
    one with kv_len < T and one at qwen3-moe's grouping G = 16; contiguous
    decode at B = 8 over a 2048-row cache of mixed lengths, rows past them
    poisoned, at B = 4 and at B = 1 with length 2000), then timed beside
    the plain version, the PyTorch library call that computes the same
-   function, and the least time the card could take;
+   function, and the least time the card could take; the attention
+   kernels and their library calls also by the profiler's device time,
+   and each wrapper by its host time a call;
 3. paged serve: ``PagedServeEngine`` on full-width qwen2-7b (random bf16
    weights from a seed) answers 8 shared-prefix requests of 16 greedy
    tokens; every request must end OK and the paged-decode kernel must
@@ -41,7 +44,8 @@ depends on it, so that one run reports every such failure):
 7. MoE kernel check: qwen2-7b is freed, and ``moe_gmm`` is held to its
    plain version at qwen3-moe's full width (128 experts, d_model 4096,
    d_ff_expert 1536) at the decode, prefill and a ragged shape, and
-   timed beside ``torch.bmm`` and its bound;
+   timed beside ``torch.bmm`` and its bound (events, and the profiler's
+   device time of both);
 8. MoE paged serve: full-width qwen3-moe-235b-a22b cut in depth to 8 of
    94 layers (random bf16 weights from a seed, ~42 GB) serves phase 3's
    trace; every request OK, ``moe_gmm`` launched 3 x n_layers x (decode
@@ -249,14 +253,19 @@ def l2_flush(torch):
 
 
 def device_ms(torch, fn, n: int, flush) -> float:
-    """Mean device time of ``fn``'s own kernels over ``n`` calls, each
-    after ``flush``, from a profiler trace that leaves the flush's fill
-    kernels out (``fn`` itself launches no integer fill): what the card
-    spends on a call whatever the host spends to launch it.  None when
-    the profiler records no kernels."""
+    """Mean device time of ``fn``'s own kernels per call, from a profiler
+    trace of ``n`` calls, each after ``flush``, that leaves the flush's
+    fill kernels out (``fn`` itself launches no integer fill): what the
+    card spends on a call whatever the host spends to launch it.  The
+    trace on the card's machine sometimes loses an event (a call's
+    kernel or a flush's fill), so a call's time is each of its kernels'
+    mean time a launch times its launches a call (its count over ``n``,
+    rounded), which a lost event changes neither way.  None when the
+    trace holds no kernel of ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as trace
     fn()
+    torch.cuda.synchronize()
     with trace(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             flush()
@@ -265,10 +274,12 @@ def device_ms(torch, fn, n: int, flush) -> float:
     got = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA
            and e.self_device_time_total > 0
-           and "FillFunctor<int>" not in e.key]
+           and "FillFunctor<int>" not in e.key
+           and round(e.count / n) > 0]
     if not got:
         return None
-    return sum(e.self_device_time_total for e in got) / n / 1e3
+    return sum(e.self_device_time_total / e.count * round(e.count / n)
+               for e in got) / 1e3
 
 
 def host_us(torch, fn, n: int = 200) -> float:
@@ -284,13 +295,13 @@ def host_us(torch, fn, n: int = 200) -> float:
     return t / n * 1e6
 
 
-def readings(rec, prefix: str = "") -> str:
+def readings(rec, prefix: str = "", library: str = "sdpa") -> str:
     """The profiler's and the host's readings of a timed call, printed
     beside its event time."""
     def ms(x):
         return "not measured" if x is None else f"{x:.4f} ms"
-    return (f"{prefix}device {ms(rec['device_ms'])} (profiler), sdpa device "
-            f"{ms(rec['library_device_ms'])}; wrapper host time "
+    return (f"{prefix}device {ms(rec['device_ms'])} (profiler), {library} "
+            f"device {ms(rec['library_device_ms'])}; wrapper host time "
             f"{rec['host_us']:.1f} us per call")
 
 
@@ -369,13 +380,18 @@ def phase_kernels(torch, cfg, page: int, nb: int):
         return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
                                               enable_gqa=True)
 
+    def kernel():
+        return paged_decode_attention(q, kp, vp, tables, lens)
+
     lib_err = float((library()[:, :, 0].float() - want.float()).abs().max())
     flush = l2_flush(torch)
-    ms = time_ms(torch, lambda: paged_decode_attention(q, kp, vp, tables,
-                                                       lens), 100, flush)
+    ms = time_ms(torch, kernel, 100, flush)
     plain_ms = time_ms(torch, lambda: paged_decode_attention_plain(
         q, kp, vp, tables, lens), 20, flush)
     library_ms = time_ms(torch, library, 100, flush)
+    rec = {"device_ms": device_ms(torch, kernel, 50, flush),
+           "library_device_ms": device_ms(torch, library, 50, flush),
+           "host_us": host_us(torch, kernel)}
     el = q.element_size()
     rows = int(lens.sum())
     nbytes = (2 * q.numel() * el + tables.numel() * 4 + lens.numel() * 4
@@ -385,7 +401,7 @@ def phase_kernels(torch, cfg, page: int, nb: int):
     print(f"paged_decode_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
           f" ms, sdpa on the gathered cache {library_ms:.4f} ms (max abs "
           f"err vs plain {lib_err:.3g}), bound {bound_ms:.5f} ms "
-          f"({bound_by}: {nbytes} bytes, {flops} flops)")
+          f"({bound_by}: {nbytes} bytes, {flops} flops); " + readings(rec))
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:159",
@@ -944,12 +960,19 @@ def moe_gmm_record(torch, cfg):
         want = moe_gmm_plain(x, w)
         err = held_to_plain(torch, f"moe_gmm ({label})", got, want)
         max_abs_err = max(max_abs_err, err)
+        same = float((got == want).float().mean())
         msg = (f"moe_gmm {label}: E={E} C={C} K={K} N={N} bf16: max abs err "
-               f"{err:.3g}")
+               f"{err:.3g}, {same:.6f} of outputs equal to the plain "
+               "version's (an f32 sum rounded once)")
         if timed:
             ms = time_ms(torch, lambda: moe_gmm(x, w), 50, flush)
             plain_ms = time_ms(torch, lambda: moe_gmm_plain(x, w), 10, flush)
             library_ms = time_ms(torch, lambda: torch.bmm(x, w), 50, flush)
+            rec = {"device_ms": device_ms(torch, lambda: moe_gmm(x, w), 20,
+                                          flush),
+                   "library_device_ms": device_ms(
+                       torch, lambda: torch.bmm(x, w), 20, flush),
+                   "host_us": host_us(torch, lambda: moe_gmm(x, w), 50)}
             lib_err = float((torch.bmm(x, w).float() - want.float()).abs()
                             .max())
             nbytes = (x.numel() + w.numel() + E * C * N) * x.element_size()
@@ -959,7 +982,8 @@ def moe_gmm_record(torch, cfg):
                     f"{nbytes / ms / 1e9:.3f} TB/s), plain {plain_ms:.4f} ms, "
                     f"torch.bmm {library_ms:.4f} ms (max abs err vs plain "
                     f"{lib_err:.3g}), bound {bound_ms:.5f} ms ({bound_by}: "
-                    f"{nbytes} bytes, {flops} flops)")
+                    f"{nbytes} bytes, {flops} flops); "
+                    + readings(rec, library="torch.bmm"))
             if record is None:              # the decode tick's shape
                 record = {"name": "moe_gmm", "route": "cuda",
                           "source": "src/repro_torch/csrc/moe_gmm.cu",

@@ -1,5 +1,5 @@
 // Tensor-core and copy helpers shared by the port's sm_90a kernels
-// (mfma_gemm.cu, flash_attention.cu, decode_attention.cu).
+// (mfma_gemm.cu, flash_attention.cu, decode_split.cuh, moe_gmm.cu).
 //
 // * Mma<T>::run: one mma.sync.aligned.m16n8k16 step, d = a.b + d, with
 //   bf16 or f16 operands and f32 accumulators.  Fragment layouts (g =

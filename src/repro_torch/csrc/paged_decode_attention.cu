@@ -14,87 +14,35 @@
 //   lens     (B,)    int32        tokens each request attends (kv_len)
 //   out      (B, H, hd)           in q's dtype
 //
-// Design.  One block of 128 threads per (KV head, request) walks the
-// request's pages in order, exactly as the TPU grid walks its sequential
-// kv axis; the G = H / KV query heads of the group share every K/V row
-// the block reads, so each row is read from device memory once.  Pages at
-// or past ceil(kv_len / page) are never touched, and rows past kv_len in
-// the last page are masked without being read: table slots past a
-// request's prefix (the engine points them at null block 0) and the
-// stale rows of a recycled block cost nothing and cannot leak in.
-//
-// Numerics mirror _decode_body (see attention_common.cuh, which holds the
-// loop this kernel shares with decode_attention.cu).
-//
-// Bound: bytes.  The kernel does ~4 * G * hd flops per K/V row it reads
-// (2 * KV * hd elements), about 2 * G flops per byte in bf16 -- far below
-// the ~295 flops per byte where an H100's tensor cores would become the
-// limit.  Its floor is reading each attended K/V row once:
-// sum_b kv_len[b] * KV * hd * 2 * sizeof(T) bytes at 3.35 TB/s.  This
-// first version is simple and right: scores and PV run on CUDA cores
-// from plain loads, with B * KV blocks in flight (32 for qwen2-7b at
-// B = 8), which leaves most of the 132 SMs idle; splitting the pages of
-// a request over several blocks, cp.async/TMA loads and wgmma are later
-// work.
+// The kernels, their bound, design and numerics are decode_split.cuh's,
+// with row r of request b in block tables[b, r / page] at row r % page:
+// the table capacity NB * page plays the role of the contiguous cache's
+// T, each 16-byte chunk's address is computed row by row (a tile or a
+// split may cross a page boundary), and a split that starts at or past
+// kv_len exits at once, so the table slots past a request's prefix,
+// which point at null block 0, are never looked up.
 
-#include "attention_common.cuh"
+#include "decode_split.cuh"
 
-namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(attn::kDecodeThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool, const int* __restrict__ tables,
-                    const int* __restrict__ lens, T* __restrict__ out, int H, int KV,
-                    int hd, int page, int NB, float scale) {
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int* tb = tables + (size_t)b * NB;
-  const size_t page_stride = (size_t)page * KV * hd;
-  const size_t head = (size_t)kvh * hd;
-  attn::decode_attend<T>(q, k_pool, v_pool, out, b, kvh, H, KV, hd, page, lens[b], scale,
-                         [=](int j) { return (size_t)tb[j] * page_stride + head; });
-}
-
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,
-           const int* lens, void* out, int B, int H, int KV, int hd, int page, int NB,
-           float scale, cudaStream_t stream) {
-  const size_t smem = attn::decode_smem_bytes(H / KV, hd, page);
-  const int e = attn::allow_smem(paged_decode_kernel<T>, smem);
-  if (e) return e;
-  const dim3 grid(KV, B);
-  paged_decode_kernel<T><<<grid, attn::kDecodeThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, lens, static_cast<T*>(out), H, KV, hd, page,
-      NB, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns the launch's
-// cudaError_t (0 on success); the kernel runs on `stream` and is not
-// waited for.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  split_rows (R, a
+// multiple of 64) cuts each request's NB * page rows into ns =
+// ceil(NB * page / R) splits; acc, m, l and tickets as in
+// decode_attention_launch.  Launches on `stream` and does not wait;
+// returns the launch's cudaError_t (0 on success).
 extern "C" int paged_decode_attention_launch(const void* q, const void* k_pool,
                                              const void* v_pool, const int* tables,
-                                             const int* lens, void* out, int B, int H,
-                                             int KV, int hd, int page, int NB, float scale,
-                                             int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(q, k_pool, v_pool, tables, lens, out, B, H, KV, hd, page, NB,
-                           scale, st);
-    case 1:
-      return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lens, out, B, H, KV, hd,
-                                   page, NB, scale, st);
-    case 2:
-      return launch<__half>(q, k_pool, v_pool, tables, lens, out, B, H, KV, hd, page, NB,
-                            scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                             const int* lens, void* out, void* acc, void* m,
+                                             void* l, void* tickets, int B, int H, int KV,
+                                             int hd, int page, int NB, int split_rows,
+                                             float scale, int dtype, void* stream) {
+  if (split_rows < 1 || page < 1 || lens == nullptr) return (int)cudaErrorInvalidValue;
+  const int T_len = NB * page;
+  const decode_split::Params p{
+      q, k_pool, v_pool, lens, tables, out, static_cast<float*>(acc), static_cast<float*>(m),
+      static_cast<float*>(l), static_cast<int*>(tickets), B, H, KV, hd, T_len, 0,
+      split_rows, (T_len + split_rows - 1) / split_rows, page, NB, scale};
+  return decode_split::launch<decode_split::PagedRows>(p, dtype,
+                                                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* paged_decode_attention_error_string(int code) {

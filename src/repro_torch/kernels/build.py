@@ -27,6 +27,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List
 
+import torch
+
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc", "library_path",
            "build", "load", "launch", "build_logs"]
 
@@ -124,12 +126,19 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, argtypes, *args) -> None:
+def launch(name: str, argtypes, *args, device=None) -> None:
     """Call ``<name>_launch(*args)`` in kernel ``name``'s library (built
     first if needed); raise ``RuntimeError`` with CUDA's message when the
     launch returns an error (a refused launch never runs, and a later
     synchronize would not report it).  The function and its argument
-    types are set up once per kernel, not on every launch."""
+    types are set up once per kernel, not on every launch.  With a CUDA
+    ``device``, the launch runs with it current, entering
+    ``torch.cuda.device`` only when another device is current (entering
+    it costs the host more than the rest of a small launch)."""
+    if device is not None:
+        if device.index != torch.cuda.current_device():
+            with torch.cuda.device(device):
+                return launch(name, argtypes, *args)
     argtypes = tuple(argtypes)
     fn, types = _ENTRY.get(name, (None, None))
     if fn is None or types != argtypes:

@@ -11,31 +11,30 @@ cache, its G = H / KV query heads of a group together:
   runs it once per layer on every decode tick.
 
 On a CUDA tensor each wrapper launches its kernel (built on first use)
-or raises:
+or raises.  The two kernels (``csrc/decode_attention.cu`` and
+``csrc/paged_decode_attention.cu``) share one body,
+``csrc/decode_split.cuh``, and differ only in where a request's row r
+lies.  Each request's cache (for the paged one, its table's NB * page
+rows) is cut into splits of :func:`kernel_split_rows` rows, a block per
+(split, KV head, request), bf16/f16 products on the tensor cores
+(``mma.sync``; p as a high and a low half, so that it keeps f32's
+precision), each split's unnormalised state in f32 scratch; the last
+block of a (request, KV head) to finish, found by an atomic ticket
+(counters the kernel resets), combines the splits.  The wrappers draw
+the scratch and the tickets once per (device, stream) and keep them.
+One launch, one count.
 
-* ``csrc/decode_attention.cu`` cuts each request's cache into splits of
-  :func:`kernel_split_rows` rows, a block per (split, KV head, request),
-  bf16/f16 products on the tensor cores (``mma.sync``; p as a high and a
-  low half, so that it keeps f32's precision), each split's
-  unnormalised state in f32 scratch; the last block of a (request, KV
-  head) to finish, found by an atomic ticket (counters the kernel
-  resets), combines the splits.  The wrapper draws the scratch and the
-  tickets once per (device, stream) and keeps them.  One launch, one
-  count;
-* ``csrc/paged_decode_attention.cu`` walks a request's pages in one
-  block (its loop in ``csrc/attention_common.cuh``).
-
-On a CPU tensor each runs its plain version (:func:`_tile_walk`, the
-tile loop written with PyTorch ops: same tile order, same masks, same
-f32 online softmax and the same roundings as its kernel).  The paged one
-rounds as the reference does: scores ``(q * scale) . k``, p and each
-tile's PV product rounded to V's dtype.  The contiguous one walks the
-kernel's splits and combines them as the kernel does, forms its scores
-as ``(q . k) * scale`` and keeps p and PV in f32, so that only its
-output is rounded, as the tensor-core kernel does.  The CPU
-tests hold the plain versions against the reference's Pallas kernels in
-interpret mode, and ``chip_smoke.py`` holds the CUDA kernels against
-them on the card.
+On a CPU tensor each runs its plain version, the kernels' loop written
+with PyTorch ops (:func:`_tile_walk` over the kernels' splits, then
+their combine): same tiles, same masks, same f32 online softmax and the
+same roundings.  Both form scores as ``(q . k) * scale`` and keep p and
+PV in f32, so that only the output is rounded, as the tensor-core
+kernels do; the reference forms ``(q * scale) . k`` and rounds p and
+each tile's PV product to V's dtype.  The paged plain version gathers
+the request's pages into a contiguous cache and walks it as the
+contiguous one does.  The CPU tests hold the plain versions against the
+reference's Pallas kernels in interpret mode, and ``chip_smoke.py``
+holds the CUDA kernels against them on the card.
 
 ``LAUNCHES`` counts kernel launches by kernel name (plain runs are not
 counted), so a run can show that its decode steps went through the
@@ -60,31 +59,31 @@ __all__ = ["decode_attention", "decode_attention_plain",
 NAME = "paged_decode_attention"
 DECODE = "decode_attention"
 LAUNCHES: Dict[str, int] = {DECODE: 0, NAME: 0}
-TILE = 64             # cache rows per step of the contiguous kernel (kTile)
-BLOCKS_PER_SM = 2     # the contiguous kernel's target, as splits allow
+TILE = 64             # cache rows per step of the kernels (kTile)
+BLOCKS_PER_SM = 2     # the kernels' target, as splits allow
+PAGE_QUANTUM = 16     # a pool page is a multiple of 16 rows ...
+MAX_PAGE = 512        # ... up to 512 (the paged cache's pages)
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _DECODE_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_PAGED_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _SCRATCH: Dict[tuple, tuple] = {}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HD = 256
 
 
-def _tile_walk(qf, k_pool, v_pool, tables, lens, scale=None,
-               round_to_v=True):
+def _tile_walk(qf, k_pool, v_pool, tables, lens, scale):
     """The kernels' tile loop in PyTorch ops, vectorised over requests and
     KV heads: qf (B, KV, G, hd) f32 attends pool blocks
     ``tables[b, 0 .. ceil(lens[b]/page))`` and returns the online
     softmax's state (m, l, acc), (B, KV, G, 1), (B, KV, G, 1) and
-    (B, KV, G, hd) f32.  Scores are ``qf . k``, times ``scale`` when one
-    is given.  With ``round_to_v`` (the paged kernel, as the reference)
-    p is rounded to V's dtype before PV and each tile's PV product before
-    it joins ``acc * corr``; without (the contiguous kernel) both stay
-    f32.  A request whose pages are exhausted keeps its state while
-    longer requests go on, as the kernels' per-request page count does;
-    rows past ``lens`` are masked and their V rows zeroed, so stale or
-    poisoned rows never reach the result."""
+    (B, KV, G, hd) f32.  Scores are ``(qf . k) * scale``; p and each
+    tile's PV product stay f32.  A request whose pages are exhausted
+    keeps its state while longer requests go on, as the kernels' per-request
+    tile count does; rows past ``lens`` are masked and their V rows
+    zeroed, so stale or poisoned rows never reach the result."""
     B, KV, G, hd = qf.shape
     page = k_pool.shape[1]
     dev = qf.device
@@ -98,20 +97,13 @@ def _tile_walk(qf, k_pool, v_pool, tables, lens, scale=None,
         valid = (j * page + cols)[None, :] < lens[:, None]  # (B, page)
         v = torch.where(valid[:, :, None, None], v_pool[tables[:, j]],
                         torch.zeros((), dtype=v_pool.dtype, device=dev))
-        s = torch.einsum("bkgd,btkd->bkgt", qf, k)
-        if scale is not None:
-            s = s * scale
+        s = torch.einsum("bkgd,btkd->bkgt", qf, k) * scale
         s = torch.where(valid[:, None, None, :], s, _NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l_new = l * corr + p.sum(-1, keepdim=True)
-        if round_to_v:
-            p = p.to(v.dtype).float()
-        pv = torch.einsum("bkgt,btkd->bkgd", p, v.float())
-        if round_to_v:
-            pv = pv.to(v.dtype).float()
-        acc_new = acc * corr + pv
+        acc_new = acc * corr + torch.einsum("bkgt,btkd->bkgd", p, v.float())
         live = (j * page < lens)[:, None, None, None]
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
@@ -119,18 +111,23 @@ def _tile_walk(qf, k_pool, v_pool, tables, lens, scale=None,
     return m, l, acc
 
 
-def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, kv_len):
-    """The paged kernel's loop (:func:`_tile_walk` over the request's
-    pages, the page being the tile) with its score numerics,
-    ``(q * scale) . k``, normalised as ``acc / max(l, 1e-30)``."""
+def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, kv_len, *,
+                                 split_rows: Optional[int] = None):
+    """The paged kernel's loop: each request's table pages gathered into
+    a contiguous (B, NB * page, KV, hd) cache, walked as
+    :func:`decode_attention_plain` walks it, in splits of ``split_rows``
+    rows (default: the kernel's, :func:`kernel_split_rows` of the table
+    capacity NB * page), each in 64-row tiles, the splits combined in
+    f32.  Rows past ``kv_len`` (the last page's tail, the null block
+    that unused slots point at) are masked as the kernel masks them."""
     B, H, hd = q.shape
     KV = k_pool.shape[2]
-    qf = q.reshape(B, KV, H // KV, hd).float() * (1.0 / math.sqrt(hd))
-    _, l, acc = _tile_walk(
-        qf, k_pool, v_pool, block_tables.to(device=q.device, dtype=torch.long),
-        kv_len.to(device=q.device, dtype=torch.long))
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.to(q.dtype).reshape(B, H, hd)
+    tables = block_tables.to(device=q.device, dtype=torch.long)
+    k = k_pool[tables].reshape(B, -1, KV, hd)
+    v = v_pool[tables].reshape(B, -1, KV, hd)
+    R = kernel_split_rows(k.shape[1], B * KV) if split_rows is None \
+        else split_rows
+    return decode_attention_plain(q, k, v, kv_len, split_rows=R)
 
 
 def _check(q, k_pool, v_pool, block_tables, kv_len) -> None:
@@ -147,6 +144,11 @@ def _check(q, k_pool, v_pool, block_tables, kv_len) -> None:
     if hd % 32 or hd > _MAX_HD:
         raise ValueError(f"{NAME}: head dim {hd} must be a multiple of 32 "
                          f"and at most {_MAX_HD}")
+    page = k_pool.shape[1]
+    if page % PAGE_QUANTUM or not PAGE_QUANTUM <= page <= MAX_PAGE:
+        raise ValueError(f"{NAME}: page {page} must be a multiple of "
+                         f"{PAGE_QUANTUM} rows between {PAGE_QUANTUM} and "
+                         f"{MAX_PAGE}")
     if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype \
             or v_pool.dtype != q.dtype:
         raise ValueError(f"{NAME}: q/k/v must share one of "
@@ -170,16 +172,17 @@ def _check(q, k_pool, v_pool, block_tables, kv_len) -> None:
 def _kernel(q, k_pool, v_pool, block_tables, kv_len) -> torch.Tensor:
     B, H, hd = q.shape
     page, KV = k_pool.shape[1], k_pool.shape[2]
+    NB = block_tables.shape[1]
+    R = kernel_split_rows(NB * page, B * KV)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        build.launch(NAME, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-                     q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                     block_tables.data_ptr(), kv_len.data_ptr(),
-                     out.data_ptr(), B, H, KV, hd, page,
-                     block_tables.shape[1], 1.0 / math.sqrt(hd),
-                     _DTYPE_CODES[q.dtype],
-                     torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    acc, m, l, tickets = _split_state(q.device, stream, B, H, KV, hd,
+                                      -(-NB * page // R))
+    build.launch(NAME, _PAGED_ARGS, q.data_ptr(), k_pool.data_ptr(),
+                 v_pool.data_ptr(), block_tables.data_ptr(),
+                 kv_len.data_ptr(), out.data_ptr(), acc, m, l, tickets, B, H,
+                 KV, hd, page, NB, R, 1.0 / math.sqrt(hd),
+                 _DTYPE_CODES[q.dtype], stream, device=q.device)
     LAUNCHES[NAME] += 1
     return out
 
@@ -215,8 +218,9 @@ def _lens(kv_len, B: int, T: int, device) -> torch.Tensor:
 
 
 def kernel_split_rows(T: int, batch_kv: int) -> int:
-    """Rows R of one split of the contiguous kernel for a cache of T rows
-    and ``batch_kv`` = B * KV (request, KV head) pairs: a multiple of the
+    """Rows R of one split of the decode kernels for a cache of T rows
+    (the paged kernel's T is its table capacity NB * page) and
+    ``batch_kv`` = B * KV (request, KV head) pairs: a multiple of the
     64-row tile, at least two tiles (below that a split's fixed costs
     outweigh its rows), and otherwise small enough that
     ``BLOCKS_PER_SM`` blocks an SM of the port's card (the ``h100``
@@ -263,7 +267,7 @@ def decode_attention_plain(q, k, v, kv_len, *, block_kv: int = TILE,
     qf = q.reshape(B, 1, KV, G, hd).float().expand(B, ns, KV, G, hd)
     m, l, acc = _tile_walk(qf.reshape(B * ns, KV, G, hd), splits(k),
                            splits(v), tables, split_lens,
-                           scale=1.0 / math.sqrt(hd), round_to_v=False)
+                           1.0 / math.sqrt(hd))
     m, l, acc = (x.reshape(B, ns, KV, G, -1) for x in (m, l, acc))
     M = m.amax(1)
     L = torch.zeros_like(M)
@@ -310,13 +314,18 @@ def _check_decode(q, k, v, kv_len) -> None:
         raise ValueError(f"{DECODE}: operands must be contiguous")
 
 
-def _scratch(device, stream: int, n_tickets: int, n_state: int):
-    """The kernel's scratch for launches on ``stream``: its (request, KV
-    head, fragment) tickets, zero between launches (the last block of
-    each group resets its own), and the f32 split state each launch
-    writes before it reads it.  Drawn once a stream and kept, grown when
-    a launch needs more, because launches on one stream never overlap;
-    keeping them spares every decode step two allocations on the host."""
+def _split_state(device, stream: int, B: int, H: int, KV: int, hd: int,
+                 ns: int):
+    """Pointers to the kernels' scratch for a launch of ns splits on
+    ``stream``: acc (B, H, ns, hd), m and l (B, H, ns), the f32 split
+    state each launch writes before it reads it, and the (B, KV,
+    ceil(G / 16)) tickets, zero between launches (the last block of each
+    group resets its own).  Drawn once a stream and kept, grown when a
+    launch needs more, because launches on one stream never overlap (both
+    kernels share them); keeping them spares every decode step two
+    allocations on the host."""
+    cells = B * H * ns                   # (request, head, split)
+    n_tickets, n_state = B * KV * -(-(H // KV) // 16), cells * (hd + 2)
     key = (device, stream)
     tickets, state = _SCRATCH.get(key, (None, None))
     if tickets is None or tickets.numel() < n_tickets:
@@ -325,7 +334,9 @@ def _scratch(device, stream: int, n_tickets: int, n_state: int):
     if state is None or state.numel() < n_state:
         state = torch.empty(n_state, dtype=torch.float32, device=device)
     _SCRATCH[key] = (tickets, state)
-    return tickets, state
+    acc = state.data_ptr()
+    return (acc, acc + 4 * cells * hd, acc + 4 * cells * (hd + 1),
+            tickets.data_ptr())
 
 
 def _decode_kernel(q, k, v, kv_len) -> torch.Tensor:
@@ -335,22 +346,14 @@ def _decode_kernel(q, k, v, kv_len) -> torch.Tensor:
     lens = kv_len.data_ptr() if per_request else None      # NULL: scalar
     scalar = 0 if per_request else min(int(kv_len), T)
     R = kernel_split_rows(T, B * KV)
-    cells = B * H * -(-T // R)           # (request, head, split)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    # each split's f32 state: acc (B, H, ns, hd), then m and l (B, H, ns)
-    tickets, state = _scratch(q.device, stream,
-                              B * KV * -(-(H // KV) // 16), cells * (hd + 2))
-    acc = state.data_ptr()
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens, out.data_ptr(),
-            acc, acc + 4 * cells * hd, acc + 4 * cells * (hd + 1),
-            tickets.data_ptr(), B, H, KV, hd, T, scalar, R,
-            1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype], stream)
-    if q.device.index == torch.cuda.current_device():
-        build.launch(DECODE, _DECODE_ARGS, *args)
-    else:
-        with torch.cuda.device(q.device):
-            build.launch(DECODE, _DECODE_ARGS, *args)
+    acc, m, l, tickets = _split_state(q.device, stream, B, H, KV, hd,
+                                      -(-T // R))
+    build.launch(DECODE, _DECODE_ARGS, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), lens, out.data_ptr(), acc, m, l, tickets, B,
+                 H, KV, hd, T, scalar, R, 1.0 / math.sqrt(hd),
+                 _DTYPE_CODES[q.dtype], stream, device=q.device)
     LAUNCHES[DECODE] += 1
     return out
 

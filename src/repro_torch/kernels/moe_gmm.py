@@ -8,7 +8,12 @@ MoE layer runs it three times per layer on every step (the gate, up and
 down projections over the expert slot buffers).
 
 * On a CUDA tensor :func:`moe_gmm` launches the kernel in
-  ``csrc/moe_gmm.cu`` (built on first use) or raises.
+  ``csrc/moe_gmm.cu`` (built on first use) or raises.  bf16 and f16
+  operands whose K and N are multiples of 8 and whose pointers are
+  16-byte aligned run on the tensor cores (``mma.sync``), w streamed
+  through a cp.async ring, in blocks of 16, 32, 64 or 128 slot rows,
+  the smallest that covers C; f32 operands and the other 16-bit ones run
+  on CUDA cores.  The kernel chooses by dtype, alignment and shape.
 * On a CPU tensor it runs :func:`moe_gmm_plain`: the products in f32,
   rounded once to x's dtype.  The CPU tests hold it against the
   reference's Pallas kernel in interpret mode, and ``chip_smoke.py``
@@ -38,6 +43,7 @@ NAME = "moe_gmm"
 LAUNCHES: Dict[str, int] = {NAME: 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -73,12 +79,10 @@ def _kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     E, C, K = x.shape
     N = w.shape[2]
     out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        build.launch(NAME, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p],
-                     x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, K, N,
-                     _DTYPE_CODES[x.dtype],
-                     torch.cuda.current_stream(x.device).cuda_stream)
+    build.launch(NAME, _ARGS, x.data_ptr(), w.data_ptr(), out.data_ptr(), E,
+                 C, K, N, _DTYPE_CODES[x.dtype],
+                 torch.cuda.current_stream(x.device).cuda_stream,
+                 device=x.device)
     LAUNCHES[NAME] += 1
     return out
 

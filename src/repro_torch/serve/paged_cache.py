@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention import MAX_PAGE, PAGE_QUANTUM
 from repro_torch.models.blocks import layer_sigs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype
@@ -41,15 +42,12 @@ __all__ = ["PagedKVCache", "default_page_size", "prefix_digests",
            "validate_page"]
 
 DEFAULT_PAGE = 64
-PAGE_QUANTUM = 16
-MAX_PAGE = 512
 
 
 def validate_page(page: int) -> int:
     """``page`` as an int, or a ``ValueError`` saying what a page may be:
-    a multiple of 16 rows (whole 16-row MMA k-steps in bf16) up to 512
-    (the kernel keeps a page of f32 scores per query head in shared
-    memory)."""
+    a multiple of 16 rows up to 512, the pages the paged decode kernel
+    takes (``repro_torch.kernels.decode_attention``)."""
     if isinstance(page, bool) or int(page) != page or not (
             PAGE_QUANTUM <= page <= MAX_PAGE and page % PAGE_QUANTUM == 0):
         raise ValueError(

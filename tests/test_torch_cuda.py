@@ -12,8 +12,10 @@ magnitude; a kernel and its plain version round at the same points but
 sum in different orders, and the flash and contiguous decode kernels
 carry p as two halves in its dtype, within 2**-16 of the plain version's
 f32 p), plus rtol 2**-7 (one bf16 ulp at any
-magnitude) for the flash and contiguous decode kernels, whose outputs
-reach |x| >= 2 where an ulp is 2**-6; float32 atol 1e-5 (1e-4 for flash
+magnitude) for the flash and decode kernels, whose outputs
+reach |x| >= 2 where an ulp is 2**-6 (the first paged-decode test keeps
+rtol 0: its outputs stay below 2); float16 atol 1e-3 plus rtol 2**-10
+(one f16 ulp); float32 atol 1e-5 (1e-4 for flash
 attention, whose sums run over up to 300 keys).  The MoE grouped GEMM:
 bfloat16 atol 1e-2 plus rtol 2**-7 (both round the same f32 sums once,
 summed in different orders); float32 atol 2e-3 plus rtol 1e-5 (sums of
@@ -52,8 +54,9 @@ from repro_torch.models import init_params
 from repro_torch.serve import OK, PagedServeEngine, ServeEngine, get_trace
 from repro_torch.serve.parity import divergences
 
-ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
+RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+        torch.float16: 2.0 ** -10}
 
 
 @pytest.fixture
@@ -119,6 +122,55 @@ def test_engine_kernel_path_matches_plain_path(cuda):
     assert [r.status for r in k_res] == [OK] * len(reqs)
     assert k_stats.ticks == p_stats.ticks
     assert all(d["near_tie"] for d in divergences(plain, reqs, p_res, k_res))
+
+
+def _paged_split_case(g, G, page, dtype, lens, *, KV=4, hd=128, T=704):
+    """A pool whose tables hold T rows (several of the kernel's splits),
+    requests of ``lens`` rows, the idle ones (length 1) on null block 0,
+    which holds finite poison; rows past a length in a request's own
+    pages are NaN and must never be read."""
+    B, NB = len(lens), -(-T // page)
+    P = 1 + B * NB
+    q = _randn(g, B, G * KV, hd)
+    kp, vp = _randn(g, P, page, KV, hd), _randn(g, P, page, KV, hd)
+    kp[0], vp[0] = 40.0, -40.0
+    tables = torch.zeros((B, NB), dtype=torch.int32)
+    for b, n in enumerate(lens):
+        if n == 1:
+            continue                                  # idle: all null
+        used = -(-n // page)
+        tables[b, :used] = torch.arange(1 + b * NB, 1 + b * NB + used)
+        last, tail = 1 + b * NB + used - 1, n - (used - 1) * page
+        kp[last, tail:], vp[last, tail:] = float("nan"), float("nan")
+    return ([t.to(dtype).cuda() for t in (q, kp, vp)]
+            + [tables.cuda(), torch.tensor(lens, dtype=torch.int32).cuda()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("page", [16, 64, 128])
+@pytest.mark.parametrize("G", [1, 7, 16])
+def test_paged_kernel_splits_back_to_back(cuda, G, page, dtype):
+    """The split paged kernel over a 704-row table (several splits of
+    kernel_split_rows rows, each crossing pages at 16 and 64 rows),
+    ragged lengths and an idle slot on block 0, launched twice back to
+    back on one stream with other lengths and pools: the second launch
+    finds the tickets the first reset and reuses its scratch.  One
+    count per launch; both equal the plain version."""
+    g = torch.Generator().manual_seed(G * page)
+    first = _paged_split_case(g, G, page, dtype, [700, 1, 129, 64, 333])
+    second = _paged_split_case(g, G, page, dtype, [1, 256, 700, 17, 640])
+    before = launch_counts()["paged_decode_attention"]
+    got = [paged_decode_attention(*first), paged_decode_attention(*second)]
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_decode_attention"] == before + 2
+    for out, args in zip(got, (first, second)):
+        want = paged_decode_attention_plain(*args)
+        assert torch.isfinite(out).all()
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=RTOL[dtype], atol=ATOL[dtype])
 
 
 def _randn(g, *shape):
@@ -299,6 +351,54 @@ def test_moe_gmm_kernel_matches_plain(cuda, E, C, K, N, offset, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=rtol,
                                atol=atol)
+
+
+def _moe_operands(g, E, C, K, N, dtype, offset=0):
+    def operand(*shape, scale=1.0):
+        flat = (_randn(g, math.prod(shape) + offset) * scale).to(dtype)
+        return flat.cuda()[offset:].view(shape)
+
+    return operand(E, C, K), operand(E, K, N, scale=1 / math.sqrt(K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("C", [4, 16, 32, 44, 160])
+def test_moe_gmm_ring_row_tiles(cuda, C, dtype):
+    """The tensor-core ring at the capacities of the serving paths, each
+    on its row tile (16, 32, 64, 128 rows; C = 160 takes two tiles of
+    128), K = 264 (a ragged last 32-deep slice) and N = 392 (a ragged
+    last 128-column tile): one count per call, equal to the plain
+    version."""
+    g = torch.Generator().manual_seed(C)
+    x, w = _moe_operands(g, 3, C, 264, 392, dtype)
+    before = launch_counts()["moe_gmm"]
+    got = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_gmm"] == before + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               moe_gmm_plain(x, w).float().cpu().numpy(),
+                               rtol=RTOL[dtype], atol=ATOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("N,offset", [(100, 0), (128, 1)],
+                         ids=["n_not_multiple_of_8", "offset_pointer"])
+def test_moe_gmm_cuda_core_path(cuda, N, offset, dtype):
+    """16-bit operands the ring does not take (N not a multiple of 8, a
+    pointer off 16-byte alignment) run on the CUDA-core kernel at the
+    decode capacity: one count per call, equal to the plain version."""
+    g = torch.Generator().manual_seed(N + offset)
+    x, w = _moe_operands(g, 2, 32, 64, N, dtype, offset)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    before = launch_counts()["moe_gmm"]
+    got = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_gmm"] == before + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               moe_gmm_plain(x, w).float().cpu().numpy(),
+                               rtol=RTOL[dtype], atol=ATOL[dtype])
 
 
 # The routing near-tie margin for the reduced MoE model: its router

@@ -13,7 +13,8 @@ of 128, and walks the cache in splits: the kernel's own
 the splits combined after, which sums in another order than one walk
 and is held to the same tolerances; lengths at the splits' edges too.
 It keeps p and each tile's PV product in f32, as the kernel does, where
-the reference (and the paged plain version) rounds both to V's dtype.
+the reference rounds both to V's dtype; the paged plain version is this
+walk over the request's gathered pages.
 
 Tolerances: float32 atol 1e-5 (summation order); bfloat16 atol 1e-2
 plus rtol 2**-7, one bf16 ulp at any magnitude (the reference's
@@ -169,7 +170,10 @@ def test_kernel_split_rows(T, batch_kv, want):
 
 def _paged_loop_before_split(q, k_pool, v_pool, block_tables, kv_len):
     """paged_decode_attention_plain as it was before its loop became a
-    helper shared with the split contiguous version."""
+    helper shared with the split contiguous version: one walk of the
+    request's pages, the page being the tile, with the reference's
+    roundings (scores (q * scale) . k, p and each page's PV product
+    rounded to V's dtype)."""
     B, H, hd = q.shape
     page, KV = k_pool.shape[1], k_pool.shape[2]
     G = H // KV
@@ -205,8 +209,11 @@ def _paged_loop_before_split(q, k_pool, v_pool, block_tables, kv_len):
 
 @pytest.mark.parametrize("dtype", list(ATOL))
 def test_paged_plain_unchanged_by_the_shared_loop(dtype):
-    """The paged plain version gives the same bits as before its loop
-    was factored out (its scores stay (q * scale) . k)."""
+    """The paged plain version is the contiguous one's split walk over
+    the request's gathered pages, bit for bit, and lies within the
+    file's tolerances of its loop from before the split (which kept the
+    reference's roundings, where both plain versions now keep p and PV
+    in f32 as the kernels do)."""
     rng = np.random.default_rng(12)
     q = rng.standard_normal((4, 14, 32)).astype(np.float32)
     kp = rng.standard_normal((9, 16, 2, 32)).astype(np.float32)
@@ -216,9 +223,13 @@ def test_paged_plain_unchanged_by_the_shared_loop(dtype):
                           dtype=torch.int32)
     lens = torch.tensor([37, 16, 17, 1], dtype=torch.int32)
     args = _torch((q, kp, vp), dtype) + [tables, lens]
+    got = paged_decode_attention_plain(*args).float().numpy()
+    k, v = (t[tables.long()].reshape(4, 48, 2, 32) for t in args[1:3])
     np.testing.assert_array_equal(
-        paged_decode_attention_plain(*args).float().numpy(),
-        _paged_loop_before_split(*args).float().numpy())
+        got, decode_attention_plain(args[0], k, v, lens).float().numpy())
+    np.testing.assert_allclose(
+        got, _paged_loop_before_split(*args).float().numpy(),
+        rtol=RTOL[dtype], atol=ATOL[dtype])
 
 
 @pytest.mark.parametrize("kv_len", [1, 64, 65, 100, 500,

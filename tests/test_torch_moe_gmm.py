@@ -5,7 +5,11 @@ C, K and N onto its tiles and slices the result) and against the plain
 oracles, plus the wrapper's contracts.
 
 Cases cover capacity-trimmed C (multiples of 4, not of the 128-row
-tile), ragged K and N, and one expert.
+tile), ragged K and N, and one expert, and the capacities the serving
+paths give the kernel, each on another of its row tiles (16, 32, 64 or
+128 rows, the smallest that covers C): C = 4 (jamba's B = 1 decode),
+32 (qwen3-moe's decode, 8 slots x 4), 44 (ragged) and 160 (a 2000-row
+qwen3-moe prefill), at small K and N.
 
 Tolerances: float32 atol 1e-4 plus rtol 1e-5 (summation order over K up
 to 200, products of unit normals).  bfloat16 atol 1e-2 plus rtol 2**-7,
@@ -37,6 +41,10 @@ CASES = {
     "decode_like": (4, 8, 128, 64),
     "one_expert_odd": (1, 44, 37, 129),
     "deep_k": (2, 12, 200, 32),
+    "decode_c4": (3, 4, 64, 48),
+    "decode_c32": (2, 32, 96, 40),
+    "ragged_c44": (2, 44, 40, 72),
+    "prefill_c160": (2, 160, 48, 136),
 }
 
 

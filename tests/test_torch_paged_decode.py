@@ -2,18 +2,26 @@
 the reference's Pallas kernel (run in interpret mode on the CPU) and
 against the plain oracle, plus the wrapper's contracts.
 
-Cases cover group sizes G in {1, 2, 7} (qwen2-7b at full width has
-G = 28 / 4 = 7), ragged per-request lengths, partial last pages, table
-tails pointing at null block 0 filled with finite poison, and an idle
-slot at kv_len 1 against the null block.  The reference's Pallas kernel
-needs 128-row pages; other page sizes are held to the oracle only.
+Cases cover group sizes G in {1, 2, 7, 16} (qwen2-7b at full width has
+G = 28 / 4 = 7, qwen3-moe 64 / 4 = 16), ragged per-request lengths,
+partial last pages, table tails pointing at null block 0 filled with
+poison, and an idle slot at kv_len 1 against the null block.  The
+reference's Pallas kernel needs 128-row pages; other page sizes are held
+to the oracle only.  The plain version walks the gathered pages in the
+kernel's splits (``kernel_split_rows`` of the table capacity NB * page),
+each in 64-row tiles, and combines them; with ``split_rows`` forced to
+64 or 192 rows the splits cross page boundaries (pages of 16 and 32) or
+cut a page (128).
 
 Tolerances: float32 atol 1e-5 (summation order); bfloat16 atol 1e-2,
-about one bf16 ulp at the outputs' magnitude (< 4), since the plain
-version and the Pallas kernel round p and each page's PV product to
-bf16 at the same points but sum in different orders.  The CUDA kernel
-is held to the plain version on the card by ``tests/test_torch_cuda.py``
-and by ``chip_smoke.py``.
+about one bf16 ulp at the outputs' magnitude (< 2 here).  The plain
+version, as the kernel, forms scores as (q . k) * scale and keeps p and
+each tile's PV product in f32, rounding only the output, where the
+Pallas kernel forms (q * scale) . k and rounds p and each page's PV
+product to bf16; each of those roundings is within half an ulp of what
+it rounds, and both sum in different orders.  The CUDA kernel is held
+to the plain version on the card by ``tests/test_torch_cuda.py`` and by
+``chip_smoke.py``.
 """
 
 import jax.numpy as jnp
@@ -59,7 +67,7 @@ def _np(t):
 
 
 @pytest.mark.parametrize("dtype", list(ATOL))
-@pytest.mark.parametrize("G", [1, 2, 7])
+@pytest.mark.parametrize("G", [1, 2, 7, 16])
 def test_plain_matches_pallas_kernel(G, dtype):
     arrs = _case(G, 128, seed=G)
     q, kp, vp, tables, lens = arrs
@@ -84,6 +92,56 @@ def test_plain_matches_oracle(G, page, dtype):
                    jnp.asarray(tables), jnp.asarray(lens))
     np.testing.assert_allclose(_np(want), np.asarray(jref, np.float32),
                                rtol=0, atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("split_rows", [64, 192])
+@pytest.mark.parametrize("dtype", list(ATOL))
+@pytest.mark.parametrize("G,page", [(1, 16), (7, 32), (16, 128)])
+def test_split_plain_matches_oracle(G, page, dtype, split_rows):
+    """Splits smaller than the table: at pages of 16 and 32 rows every
+    split spans several pages, at 128 a split of 64 rows is half a page
+    and one of 192 crosses a page boundary in its middle."""
+    arrs = _case(G, page, seed=30 + G)
+    got = paged_decode_attention_plain(*_torch(arrs, dtype),
+                                       split_rows=split_rows)
+    want = paged_decode_attention_ref(*_torch(arrs, dtype))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(ATOL))
+def test_one_split_is_the_unsplit_walk(dtype):
+    """With split_rows at least the table's NB * page rows the combine
+    over one split changes nothing: every such split size gives the same
+    bits, and they lie within the tolerance of the kernel's split."""
+    args = _torch(_case(7, 32, seed=8), dtype)
+    T = args[3].shape[1] * args[1].shape[1]
+    one = paged_decode_attention_plain(*args, split_rows=T)
+    for rows in (T + 64, 10 * T):
+        np.testing.assert_array_equal(
+            _np(paged_decode_attention_plain(*args, split_rows=rows)),
+            _np(one))
+    np.testing.assert_allclose(_np(paged_decode_attention_plain(
+        *args, split_rows=64)), _np(one), rtol=0, atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("split_rows", [64, None], ids=["split64",
+                                                        "kernel_split"])
+def test_poison_never_leaks_across_splits(split_rows):
+    """Non-finite rows on the null block and past kv_len in the last page
+    reach no split: every split past a request's length contributes
+    nothing, and the live ones mask the tail."""
+    arrs = _case(7, 16, seed=9)
+    q, kp, vp, tables, lens = arrs
+    clean = paged_decode_attention_plain(*_torch(arrs, "float32"),
+                                         split_rows=split_rows)
+    kp, vp = kp.copy(), vp.copy()
+    kp[3, 5:], vp[3, 5:] = np.nan, np.inf     # past request 0's 2*16+5
+    kp[0, 1:], vp[0, 1:] = np.inf, np.nan     # null block past kv_len 1
+    kp[5, 1:], vp[5, 1:] = np.nan, np.nan     # past request 2's 16+1
+    dirty = paged_decode_attention_plain(
+        *_torch((q, kp, vp, tables, lens), "float32"), split_rows=split_rows)
+    assert torch.isfinite(dirty).all()
+    np.testing.assert_array_equal(_np(dirty), _np(clean))
 
 
 def test_poison_past_kv_len_never_leaks():
@@ -116,6 +174,8 @@ def test_wrapper_runs_plain_on_cpu_without_counting():
     (lambda a: [a[0].float()] + a[1:], "share one of"),
     (lambda a: a[:4] + [a[4][:2]], r"kv_len \(B,\)"),
     (lambda a: [a[0][:, :3]] + a[1:], "do not group"),
+    (lambda a: [a[0], a[1][:, :24].contiguous(), a[2][:, :24].contiguous()]
+     + a[3:], "multiple of 16"),
 ])
 def test_wrapper_validates(bad, match):
     args = _torch(_case(2, 32, seed=5), "bfloat16")
