@@ -68,7 +68,9 @@ depends on it, so that one run reports every such failure):
     its plain version at mamba2-370m's full width (32 heads of 64, d_state
     128) over a 2048-row prefill and a ragged 2000-row one, and at
     jamba's (128 heads of 64, d_state 16) over 2000 rows, output and
-    final state, and timed beside its plain version and its bound;
+    final state, and timed beside its plain version and its bound, also
+    by the profiler's device time of the three CUDA kernels a call
+    enqueues and by the wrapper's host time a call;
 12. SSM sync serve: full-width, full-depth mamba2-370m (48 SSM layers,
     random bf16 weights from a seed) through ``ServeEngine(max_len=2048)``:
     prompts of 2000, 1537, 1024 and 517 tokens one at a time, then one
@@ -86,7 +88,8 @@ depends on it, so that one run reports every such failure):
     prefill of S - 1 tokens against ``forward``'s logits at S) within
     3e-2 as the reference's own test, and the streams of ``run(batch=1)``
     to the plain path's up to near-ties;
-13. SSM profile: a mamba2 B = 1 decode step and a 2048-row prefill;
+13. SSM profile: a mamba2 B = 1 decode step and a 2048-row prefill (and
+    the SSD kernels' share of the prefill's device time);
 14. hybrid sync serve: jamba-v0.1-52b at full width cut in depth to one
     8-layer period (7 SSM layers, attention at index 4, 4 MoE and 4
     dense FFNs; random bf16 weights, ~26.5 GB) serves prompts of 2000 and
@@ -95,12 +98,15 @@ depends on it, so that one run reports every such failure):
     steps); a decode step of 8 x 512-token prompts and the streams held
     to the plain path by the MoE rules of 9;
 15. the MFMA contract: jamba is freed, and ``mfma_gemm`` (D = C + A @ B,
-    bf16/f16 operands on the tensor cores) is held to its plain version
+    bf16/f16 operands on the tensor cores: ``wgmma`` fed by TMA at M >
+    64, ``mma.sync`` at the decode rows) is held to its plain version
     at kernels_bench's 256^3, qwen2-7b's gate/up projection at decode
     (M = 8) and prefill (M = 2048) and its down projection at prefill, a
     ragged shape, f32 and f16 operands and a bf16 C, the bf16 shapes with
-    f32 C timed beside ``torch.addmm(..., out_dtype=float32)`` and their
-    bound; then, counted, the contract path: C = 3 against C = 0 exactly
+    f32 C (256^3, decode, prefill gate/up and down) timed beside
+    ``torch.addmm(..., out_dtype=float32)`` and their bound, by events,
+    by the profiler's device time (both) and by the wrapper's host time;
+    then, counted, the contract path: C = 3 against C = 0 exactly
     3 apart at the decode and prefill shapes, the GEMM against
     compositions of ``core.functional.mfma_apply`` micro-ops
     (fp32_16x16x4fp32, fp32_16x16x16bf16) on the card, and every
@@ -166,6 +172,8 @@ GEMM_CASES = {
     "bf16 C": (1024, 3584, 3584, "bfloat16", "bfloat16", False),
 }
 GEMM_RECORD = "prefill gate/up"
+# the CUDA kernels one mamba2_ssd call enqueues
+SSD_KERNELS = ("ssd_chunk_kernel", "ssd_scan_kernel", "ssd_output_kernel")
 # the reference's limit for the prefill -> decode state handoff of its
 # bf16 SSM model (tests/test_arch_smoke.py)
 HANDOFF_TOL = 3e-2
@@ -868,10 +876,12 @@ def phase_engines(torch, cfg, params, reqs, paged_results):
 # -- phase 6 --------------------------------------------------------------
 
 
-def profile(torch, label: str, fn, n_wall: int = 5):
+def profile(torch, label: str, fn, n_wall: int = 5, parts=None):
     """Host wall time of ``fn`` (mean of ``n_wall`` calls, each ending in
     a synchronize, no profiler attached) against the device time of its
-    kernels in one profiled call: the share of a step the card is busy."""
+    kernels in one profiled call: the share of a step the card is busy.
+    ``parts`` maps a name to the CUDA kernels (substrings of their names)
+    that make it up; each part's device time and share is printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     fn()
@@ -899,6 +909,12 @@ def profile(torch, label: str, fn, n_wall: int = 5):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
+    for name, keys in (parts or {}).items():
+        mine = [e for e in kernels if any(k in e.key for k in keys)]
+        t = sum(e.self_device_time_total for e in mine) / 1e3
+        print(f"  {name}: {t:.4f} ms of device time in "
+              f"{sum(e.count for e in mine)} kernels "
+              f"({100 * t / dev:.1f}% of the step's)")
 
 
 def phase_profile(torch, cfg, params, reqs):
@@ -1271,11 +1287,17 @@ def ssd_record(torch):
                 x, dt, A, Bm, Cm), 5, flush)
             nbytes, flops = ssd_work(1, S, nh, 64, 1, ds, CHUNK, 2)
             bound_ms, bound_by = bound(nbytes, flops)
+            dev = device_ms(torch, lambda: mamba2_ssd(x, dt, A, Bm, Cm), 20,
+                            flush)
+            host = host_us(torch, lambda: mamba2_ssd(x, dt, A, Bm, Cm), 50)
             msg += (f"; kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s, "
                     f"{flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} "
                     f"ms, no library call, bound {bound_ms:.5f} ms "
                     f"({bound_by}: {nbytes} bytes, {flops} flops at chunk "
-                    f"{CHUNK})")
+                    f"{CHUNK}); device "
+                    + ("not measured" if dev is None else f"{dev:.4f} ms")
+                    + f" (profiler, its {len(SSD_KERNELS)} CUDA kernels), "
+                    f"wrapper host time {host:.1f} us per call")
             if record is None:              # mamba2's prefill shape
                 record = {"name": "mamba2_ssd", "route": "cuda",
                           "source": "src/repro_torch/csrc/mamba2_ssd.cu",
@@ -1496,7 +1518,8 @@ def phase_ssm_profile(torch, cfg, params):
     prompt = rng.integers(0, cfg.vocab_size, (1, SSM_SYNC["max_len"])
                           ).astype(np.int32)
     profile(torch, f"{cfg.name} sync prefill ({SSM_SYNC['max_len']} rows)",
-            lambda: eng.prefill(prompt)[0].argmax(-1).cpu())
+            lambda: eng.prefill(prompt)[0].argmax(-1).cpu(),
+            parts={"mamba2_ssd": SSD_KERNELS})
     logits, cache = eng.prefill(prompt[:, :1024])
     tok = logits.argmax(-1)[:, None]
     profile(torch, f"{cfg.name} sync decode step (B=1, position 1024)",
@@ -1562,14 +1585,23 @@ def gemm_records(torch):
                 + 2 * c.numel() * c.element_size()
             flops = 2 * M * N * K
             bound_ms, bound_by = bound(nbytes, flops)
+            n_dev = 10 if big else 50
+            rec = {"device_ms": device_ms(torch, lambda: mfma_gemm(a, b, c),
+                                          n_dev, flush),
+                   "library_device_ms": device_ms(torch, library, n_dev,
+                                                  flush),
+                   "host_us": host_us(torch, lambda: mfma_gemm(a, b, c),
+                                      20 if big else 100)}
             msg += (f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                     f"{nbytes / ms / 1e9:.3f} TB/s), plain {plain_ms:.4f} ms, "
                     f"{library_name} {library_ms:.4f} ms (max abs err vs "
                     f"plain {lib_err:.3g}), bound {bound_ms:.5f} ms "
-                    f"({bound_by}: {nbytes} bytes, {flops} flops)")
+                    f"({bound_by}: {nbytes} bytes, {flops} flops); "
+                    + readings(rec, library="torch.addmm"))
             timed_rows.append({"shape": label, "ms": ms, "plain_ms": plain_ms,
                                "library_ms": library_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by})
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               **rec})
             if label == GEMM_RECORD:
                 record = {"name": "mfma_gemm", "route": "cuda",
                           "source": "src/repro_torch/csrc/mfma_gemm.cu",

@@ -2,10 +2,9 @@
 //
 // Replaces the Pallas TPU kernel mfma_gemm (src/repro/kernels/mfma_gemm.py:
 // _gemm_kernel), the paper's Matrix Core Engine contract tiled for the
-// TPU's MXU.  Its counterpart of the MCE here is the tensor core: bf16 and
-// f16 operands run on it through mma.sync.aligned.m16n8k16 with f32
-// accumulator fragments loaded from C, which is one MFMA-style instruction
-// D = C + A.B per 16 x 8 x 16 step.
+// TPU's MXU.  Its counterpart of the MCE here is the tensor core, driven by
+// wgmma (a warpgroup's 64 x 256 x 16 product from shared memory) at
+// prefill shapes and by mma.sync (one warp's 16 x 8 x 16) at decode.
 //
 // Operands (row-major, contiguous):
 //   a  (M, K)   bf16, f16 or f32
@@ -20,27 +19,40 @@
 // Design.  Hopper has no sequential grid axis, so where the TPU grid walks
 // K as its innermost, "arbitrary" dimension with the accumulator in VMEM,
 // each block here owns one output tile, keeps its accumulator in registers
-// and loops over K itself, in 32-deep slices staged through shared memory.
-// Ragged M, N and K are masked here: a load past an edge reads zero and a
-// store past it never happens, which is exact for a GEMM and computes what
-// the TPU path's zero-pad and slice computes
-// (repro.kernels.ops.mfma_gemm(pad=True)), so no dimension has to be a
-// multiple of anything.
+// and loops over K itself, in 64-deep slices staged through shared memory.
+// Ragged M, N and K are masked: a load past an edge reads zero and a store
+// past it never happens, which is exact for a GEMM and computes what the
+// TPU path's zero-pad and slice computes (repro.kernels.ops.mfma_gemm(
+// pad=True)), so no dimension has to be a multiple of anything.
 //
-// * bf16 / f16 operands run on the tensor cores.  When K and N are
-//   multiples of 8 and a and b are 16-byte aligned (every 16-byte chunk of
-//   a row is then wholly inside or wholly past an edge), mma_gemm_pipelined:
-//   a 128 x 128 tile per block of 8 warps (2 x 4, each 64 x 32 as 4 x 4
-//   m16n8 fragments, 64 f32 accumulators a thread), the slices copied
-//   global -> shared by cp.async (zero-filled past an edge) through a ring
-//   of 4 stages, so three slices are in flight while one is multiplied.
-//   Otherwise mma_gemm_kernel: a 64 x 64 tile per block of 4 warps (2 x 2,
-//   each 32 x 32), the slices loaded one element a thread into registers,
-//   the next slice's loads issued before the current slice's products.  In both, slices are kept
-//   row-major with rows padded (A to 40 elements, B to 72 or 136) so that
-//   the eight 16-byte rows an ldmatrix phase reads fall in different
-//   banks; ldmatrix.x4 loads the A fragments and ldmatrix.x4.trans the B
-//   fragments, transposing them on the way.
+// * bf16 / f16 operands, K and N multiples of 8, a and b 16-byte aligned
+//   (every 16-byte chunk of a row then lies wholly inside or past an edge):
+//   - M > 64, wgmma_gemm_kernel: a 128 x 256 output tile per block of 3
+//     warpgroups.  One thread of the first starts TMA loads of 64-deep
+//     slices (A 128 x 64, B as four 64 x 64 boxes; a box past an edge is
+//     zero-filled, a box wholly past N is skipped) into a ring of 4 stages,
+//     each with a full and an empty mbarrier; the two others (setmaxnreg
+//     gives them the producer's registers) each run wgmma m64n256k16 on 64
+//     rows, 4 per slice, accumulators seeded from C; the products of one
+//     slice stay in flight while the stage of the last goes back to the
+//     producer.  C and D move in pairs of a row's neighbours (one 8-byte
+//     f32 or 4-byte 16-bit access) when aligned for it.  Blocks walk M
+//     first, so the blocks in flight share a few column tiles of b and
+//     the large operand is read from HBM about once.
+//   - M <= 64, mma_gemm_decode: wgmma's 64-row minimum would waste most of
+//     each product, and the shape is bound by the bytes of b.  A block of 4
+//     warps owns all M rows (16, 32 or 64) and 64 columns and streams b
+//     through a 4-stage cp.async ring of 64-deep slices (8 KB of b each,
+//     rows of 128 bytes), mma.sync on the fragments.  When the column tiles
+//     are fewer than two blocks per SM the wrapper asks for a split over K:
+//     each split adds its products into an f32 partial, and the last block
+//     of a column tile (an atomic ticket the kernel resets) adds C and the
+//     partials in split order in f32 and rounds once.
+// * bf16 / f16 operands otherwise, mma_gemm_kernel: a 64 x 64 tile per
+//   block of 4 warps (2 x 2, each 32 x 32), 32-deep slices loaded one
+//   element a thread into registers, the next slice's loads started before
+//   the current slice's products, rows padded so that the eight 16-byte
+//   rows an ldmatrix phase reads fall in different banks.
 // * f32 operands (CUDA cores): TF32 is off by convention in the port
 //   (src/repro_torch/device.py), so f32 products are exact f32 FMAs: 256
 //   threads, 4 x 4 outputs each, the A slice stored transposed.
@@ -53,19 +65,21 @@
 //                              137,060,352 B, 1.09 GFLOP -> 40.9 us, bytes
 //   prefill, M 2048, K 3584, N 18944, and the down projection (K 18944,
 //   N 3584):                   ~0.46 GB, 278 GFLOP -> 281 us, operations
-// What the design does about it: at decode every weight element is read
-// once from HBM in 16-byte chunks of coalesced rows, with three slices of
-// cp.async copies in flight a block (at M = 8 a 128-row tile wastes most
-// of each mma, which the bytes bound hides); at prefill the products run
-// on the tensor cores at 16 x 8 x 16 per instruction, 16 of them per warp
-// for every 6 ldmatrix.  mma.sync reaches a fraction of the rate that
-// wgmma fed by TMA reaches on Hopper: that is later work.
+// What the design does about it: at prefill the products run at the
+// tensor cores' own granularity (wgmma from shared memory, no ldmatrix,
+// one wait per 64 of K) with TMA keeping three slices in flight without
+// spending a consumer instruction on a copy; at decode every weight
+// element is read once from HBM in rows of 128 bytes, each block keeping
+// 24 KB of b in flight (qwen2-7b's gate/up at decode: 296 column tiles
+// in 3 splits over K, six blocks an SM).
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "attention_common.cuh"  // to_f32 / from_f32 over the storage types
 #include "mma_common.cuh"        // mma.sync, ldmatrix and cp.async
+#include "wgmma_common.cuh"      // TMA, mbarriers and wgmma
 
 namespace {
 
@@ -78,7 +92,7 @@ using mma::ldmatrix_x4;
 using mma::ldmatrix_x4_trans;
 using mma::Mma;
 
-constexpr int kBM = 64;  // output rows per block
+constexpr int kBM = 64;  // output rows per block (element-load and f32 kernels)
 constexpr int kBN = 64;  // output columns per block
 constexpr int kBK = 32;  // contraction depth per shared-memory slice
 
@@ -192,113 +206,296 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path, pipelined: bf16 / f16 operands, K and N multiples of 8
-// and a, b 16-byte aligned (every 16-byte chunk of a row is wholly inside
-// or wholly past an edge).
+// Decode path (M <= 64): bf16 / f16 operands on mma.sync, K and N
+// multiples of 8, a and b 16-byte aligned.
 // ---------------------------------------------------------------------------
 
-constexpr int kPM = 128;          // output rows per block
-constexpr int kPN = 128;          // output columns per block
-constexpr int kPThreads = 256;    // 8 warps, 2 x 4, each a 64 x 32 sub-tile
-constexpr int kStages = 4;        // slices in flight: 3 loading, 1 in use
-constexpr int kPLdA = kBK + 8;    // A slice row: 40 elements (80 bytes)
-constexpr int kPLdB = kPN + 8;    // B slice row: 136 elements (272 bytes)
-constexpr int kStageA = kPM * kPLdA;
-constexpr int kStageElems = kStageA + kBK * kPLdB;
-constexpr size_t kPSmem = (size_t)kStages * kStageElems * sizeof(uint16_t);
+constexpr int kDN = 64;           // output columns per block
+constexpr int kDK = 64;           // contraction depth per slice
+constexpr int kDStages = 4;       // slices in flight: 3 loading, 1 in use
+constexpr int kDThreads = 128;    // 4 warps, each 16 columns of all M rows
+constexpr int kDLd = kDK + 8;     // A slice row: 72 elements (144 bytes)
+constexpr int kDLdB = kDN + 8;    // B slice row: 72 elements
 
-template <typename TA, typename TC>
-__global__ void __launch_bounds__(kPThreads)
-    mma_gemm_pipelined(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
-                       const TC* __restrict__ c, TC* __restrict__ d, int M, int N, int K) {
-  extern __shared__ __align__(16) uint16_t pipe_smem[];  // kStages x (A, B slices)
+// One stage of the ring (A slice, then B slice) and the ring, for MT row
+// fragments.
+template <int MT>
+struct DecodeRing {
+  static constexpr int kStageA = 16 * MT * kDLd;
+  static constexpr int kStage = kStageA + kDK * kDLdB;
+  static constexpr size_t kBytes = (size_t)kDStages * kStage * sizeof(uint16_t);
+};
 
-  const int m0 = blockIdx.y * kPM;
-  const int n0 = blockIdx.x * kPN;
+// MT m16 fragments hold rows 0 .. 16 MT - 1 (rows >= M read zero).  Block
+// (x, y) computes columns 64 x .. and K slices [y per_split, (y + 1)
+// per_split); with one split it seeds from C and writes D, else it writes
+// its f32 partial to part + y M N and the last block of the column tile
+// writes D = C + the partials.
+template <typename TA, typename TC, int MT>
+__global__ void __launch_bounds__(kDThreads)
+    mma_gemm_decode(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
+                    const TC* __restrict__ c, TC* __restrict__ d, int M, int N, int K,
+                    int per_split, float* __restrict__ part, int* __restrict__ tickets) {
+  extern __shared__ __align__(16) uint16_t dec_smem[];
+  constexpr int kStage = DecodeRing<MT>::kStage;
+  constexpr int kStageA = DecodeRing<MT>::kStageA;
+
+  const int n0 = blockIdx.x * kDN;
+  const int nsplit = gridDim.y;
+  const int nk = (K + kDK - 1) / kDK;
+  const int kt0 = blockIdx.y * per_split;
+  const int kt1 = min(nk, kt0 + per_split);
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int wm = (warp / 4) * 64;
-  const int wn = (warp % 4) * 32;
+  const int wn = warp * 16;
 
-  // accumulator fragments as in mma_gemm_kernel, seeded from C
-  float acc[4][4][4];
+  // accumulator fragments (mi, ni): register r holds row 16 mi + g (+ 8
+  // for r >= 2), column n0 + wn + 8 ni + 2 t + (r & 1)
+  float acc[MT][2][4];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int row = m0 + wm + 16 * mi + g + (r >= 2 ? 8 : 0);
+        const int row = 16 * mi + g + (r >= 2 ? 8 : 0);
         const int col = n0 + wn + 8 * ni + 2 * t + (r & 1);
-        acc[mi][ni][r] = (row < M && col < N) ? to_f32(c[(size_t)row * N + col]) : 0.f;
+        acc[mi][ni][r] =
+            (nsplit == 1 && row < M && col < N) ? to_f32(c[(size_t)row * N + col]) : 0.f;
       }
 
-  // One slice: the A tile (128 x 32) and the B tile (32 x 128) are 512
-  // chunks of 16 bytes each, two of each per thread.
   auto load = [&](int stage, int k0) {
-    uint16_t* As = pipe_smem + stage * kStageElems;
+    uint16_t* As = dec_smem + stage * kStage;
     uint16_t* Bs = As + kStageA;
+    for (int i = tid; i < 16 * MT * (kDK / 8); i += kDThreads) {
+      const int r = i / (kDK / 8), kc = (i % (kDK / 8)) * 8;
+      const bool v = r < M && k0 + kc < K;
+      cp_async16(As + r * kDLd + kc, v ? a + (size_t)r * K + k0 + kc : a, v);
+    }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + j * kPThreads;
-      const int ar = i / (kBK / 8), ak = (i % (kBK / 8)) * 8;
-      const bool av = m0 + ar < M && k0 + ak < K;
-      cp_async16(As + ar * kPLdA + ak, av ? a + (size_t)(m0 + ar) * K + k0 + ak : a, av);
-      const int bk = i / (kPN / 8), bc = (i % (kPN / 8)) * 8;
-      const bool bv = k0 + bk < K && n0 + bc < N;
-      cp_async16(Bs + bk * kPLdB + bc, bv ? b + (size_t)(k0 + bk) * N + n0 + bc : b, bv);
+    for (int j = 0; j < kDK * (kDN / 8) / kDThreads; ++j) {
+      const int i = tid + j * kDThreads;
+      const int kr = i / (kDN / 8), nc = (i % (kDN / 8)) * 8;
+      const bool v = k0 + kr < K && n0 + nc < N;
+      cp_async16(Bs + kr * kDLdB + nc, v ? b + (size_t)(k0 + kr) * N + n0 + nc : b, v);
     }
   };
 
-  const int nk = (K + kBK - 1) / kBK;
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load(s, s * kBK);
+  for (int s = 0; s < kDStages - 1; ++s) {
+    if (kt0 + s < kt1) load(s, (kt0 + s) * kDK);
     cp_async_commit();  // one group per slice, empty past the end
   }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // slice kt has landed (this thread's part)
-    __syncthreads();               // ... every thread's; slice kt - 1 is free
-    if (kt + kStages - 1 < nk) load((kt + kStages - 1) % kStages, (kt + kStages - 1) * kBK);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int i = kt - kt0;
+    cp_async_wait<kDStages - 2>();  // slice i has landed (this thread's part)
+    __syncthreads();                // ... every thread's; slice i - 1 is free
+    if (kt + kDStages - 1 < kt1) load((i + kDStages - 1) % kDStages, (kt + kDStages - 1) * kDK);
     cp_async_commit();
 
-    const uint16_t* As = pipe_smem + (kt % kStages) * kStageElems;
+    const uint16_t* As = dec_smem + (i % kDStages) * kStage;
     const uint16_t* Bs = As + kStageA;
 #pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t af[4][4], bf[4][2];
+    for (int ks = 0; ks < kDK; ks += 16) {
+      uint32_t af[MT][4], bf[2][2];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], As + (wm + 16 * mi + lane % 16) * kPLdA + ks + 8 * (lane / 16));
-#pragma unroll
-      for (int ni = 0; ni < 4; ni += 2) {
+      for (int mi = 0; mi < MT; ++mi)
+        ldmatrix_x4(af[mi], As + (16 * mi + lane % 16) * kDLd + ks + 8 * (lane / 16));
+      {
         uint32_t r[4];
-        ldmatrix_x4_trans(r, Bs + (ks + lane % 16) * kPLdB + wn + 8 * (ni + lane / 16));
-        bf[ni][0] = r[0];
-        bf[ni][1] = r[1];
-        bf[ni + 1][0] = r[2];
-        bf[ni + 1][1] = r[3];
+        ldmatrix_x4_trans(r, Bs + (ks + lane % 16) * kDLdB + wn + 8 * (lane / 16));
+        bf[0][0] = r[0];
+        bf[0][1] = r[1];
+        bf[1][0] = r[2];
+        bf[1][1] = r[3];
       }
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+      for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) Mma<TA>::run(acc[mi][ni], af[mi], bf[ni]);
+        for (int ni = 0; ni < 2; ++ni) Mma<TA>::run(acc[mi][ni], af[mi], bf[ni]);
     }
   }
 
+  float* mine = nsplit == 1 ? nullptr : part + (size_t)blockIdx.y * M * N;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int row = m0 + wm + 16 * mi + g + (r >= 2 ? 8 : 0);
+        const int row = 16 * mi + g + (r >= 2 ? 8 : 0);
         const int col = n0 + wn + 8 * ni + 2 * t + (r & 1);
-        if (row < M && col < N) d[(size_t)row * N + col] = from_f32<TC>(acc[mi][ni][r]);
+        if (row >= M || col >= N) continue;
+        if (mine == nullptr)
+          d[(size_t)row * N + col] = from_f32<TC>(acc[mi][ni][r]);
+        else
+          mine[(size_t)row * N + col] = acc[mi][ni][r];
       }
+  if (mine == nullptr) return;
+
+  // the last split of this column tile to finish adds C and the partials
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&tickets[blockIdx.x], 1) == nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = tid; i < M * kDN; i += kDThreads) {
+    const int row = i / kDN, col = n0 + i % kDN;
+    if (col >= N) continue;
+    const size_t o = (size_t)row * N + col;
+    float s = to_f32(c[o]);
+    for (int sp = 0; sp < nsplit; ++sp) s += __ldcg(part + (size_t)sp * M * N + o);
+    d[o] = from_f32<TC>(s);
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// Prefill path (M > 64): bf16 / f16 operands on wgmma fed by TMA, K and N
+// multiples of 8, a and b 16-byte aligned.
+// ---------------------------------------------------------------------------
+
+constexpr int kWM = 128;                        // output rows per block
+constexpr int kWN = 256;                        // output columns per block
+constexpr int kWK = 64;                         // contraction depth per slice
+constexpr int kWStages = 4;                     // ring of slices
+constexpr int kWThreads = 384;                  // producer + 2 consumer warpgroups
+constexpr uint32_t kWABytes = kWM * kWK * 2;    // A slice: 16 KB
+constexpr uint32_t kWBoxBytes = kWK * 64 * 2;   // one 64-column box of B: 8 KB
+constexpr uint32_t kWStageBytes = kWABytes + 4 * kWBoxBytes;
+constexpr size_t kWSmem = (size_t)kWStages * kWStageBytes + 1024;  // + alignment
+
+// Two neighbouring elements of a row of C or D as an f32 pair, in one
+// access (p aligned to the pair).
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load_pair(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = mma::pack2<T>(lo, hi);
+}
+
+template <typename TA, typename TC>
+__global__ void __launch_bounds__(kWThreads, 1)
+    wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+                      const __grid_constant__ CUtensorMap tma_b, const TC* __restrict__ c,
+                      TC* __restrict__ d, int M, int N, int K, bool pairs) {
+  extern __shared__ uint8_t wg_smem_raw[];
+  __shared__ __align__(8) uint64_t full[kWStages];
+  __shared__ __align__(8) uint64_t empty[kWStages];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  const uint32_t raw = wgmma::smem_u32(wg_smem_raw);
+  uint8_t* ring = wg_smem_raw + ((1024 - raw % 1024) % 1024);
+
+  const int m0 = blockIdx.x * kWM;
+  const int n0 = blockIdx.y * kWN;
+  const int nk = (K + kWK - 1) / kWK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kWStages; ++s) {
+      wgmma::mbar_init(&full[s], 1);
+      wgmma::mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    wgmma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    wgmma::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      const int boxes = min(4, (N - n0 + 63) / 64);  // B boxes with a column < N
+      const uint32_t bytes = kWABytes + boxes * kWBoxBytes;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kWStages;
+        if (kt >= kWStages) wgmma::mbar_wait(&empty[s], (kt / kWStages - 1) & 1);
+        uint8_t* As = ring + s * kWStageBytes;
+        uint8_t* Bs = As + kWABytes;
+        wgmma::mbar_expect_tx(&full[s], bytes);
+        wgmma::tma_load_2d(As, &tma_a, &full[s], kt * kWK, m0);
+        for (int j = 0; j < boxes; ++j)
+          wgmma::tma_load_2d(Bs + j * kWBoxBytes, &tma_b, &full[s], n0 + 64 * j, kt * kWK);
+      }
+    }
+    return;
+  }
+
+  wgmma::setmaxnreg_inc<232>();
+  const int cw = wg - 1;  // this consumer's rows: 64 cw .. 64 cw + 63 of the tile
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int row0 = m0 + 64 * cw + 16 * warp + lane / 4;
+  const int col0 = n0 + 2 * (lane % 4);
+
+  // register 4 j + r: row row0 + 8 (r >= 2), column col0 + 8 j + (r & 1);
+  // registers 2 q and 2 q + 1 are neighbours in a row (N is even here), so
+  // with `pairs` (c and d aligned to two elements) each pair of C and D
+  // moves in one access
+  float acc[128];
+#pragma unroll
+  for (int q = 0; q < 64; ++q) {
+    const int row = row0 + (q % 2 ? 8 : 0);
+    const int col = col0 + 8 * (q / 2);
+    const TC* src = c + (size_t)row * N + col;
+    float2 v = make_float2(0.f, 0.f);
+    if (row < M && col < N) v = pairs ? load_pair(src) : make_float2(to_f32(src[0]), to_f32(src[1]));
+    acc[2 * q] = v.x;
+    acc[2 * q + 1] = v.y;
+  }
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kWStages;
+    wgmma::mbar_wait(&full[s], (kt / kWStages) & 1);
+    const uint8_t* As = ring + s * kWStageBytes + cw * 64 * 128;
+    const uint8_t* Bs = ring + s * kWStageBytes + kWABytes;
+    wgmma::fence_operands(acc);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < kWK / 16; ++kk) {
+      // A: 16 of K is 32 bytes along a swizzled row; B: 16 rows of 128 bytes
+      const uint64_t da = wgmma::desc_sw128(As + 32 * kk, 16, 1024);
+      const uint64_t db = wgmma::desc_sw128(Bs + 2048 * kk, kWBoxBytes, 1024);
+      wgmma::Wgmma256<TA>::run(acc, da, db);
+    }
+    wgmma::commit();
+    // keep this slice's products in flight; the last slice's are done, so
+    // its stage goes back to the producer
+    wgmma::wait<1>();
+    wgmma::fence_operands(acc);
+    if (kt > 0 && tid == 0) wgmma::mbar_arrive(&empty[(kt - 1) % kWStages]);
+  }
+  wgmma::wait<0>();
+  wgmma::fence_operands(acc);
+
+#pragma unroll
+  for (int q = 0; q < 64; ++q) {
+    const int row = row0 + (q % 2 ? 8 : 0);
+    const int col = col0 + 8 * (q / 2);
+    if (row >= M || col >= N) continue;
+    TC* dst = d + (size_t)row * N + col;
+    if (pairs) {
+      store_pair(dst, acc[2 * q], acc[2 * q + 1]);
+    } else {
+      dst[0] = from_f32<TC>(acc[2 * q]);
+      dst[1] = from_f32<TC>(acc[2 * q + 1]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -397,22 +594,58 @@ __global__ void __launch_bounds__(kFmaThreads)
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <typename TA, typename TC, int MT>
+int launch_decode(const uint16_t* a, const uint16_t* b, const TC* c, TC* d, int M, int N, int K,
+                  int splits, float* part, int* tickets, cudaStream_t stream) {
+  constexpr size_t smem = DecodeRing<MT>::kBytes;
+  const int e = attn::allow_smem(mma_gemm_decode<TA, TC, MT>, smem);
+  if (e) return e;
+  const int nk = (K + kDK - 1) / kDK;
+  const int per_split = (nk + splits - 1) / splits;
+  const dim3 grid((N + kDN - 1) / kDN, (nk + per_split - 1) / per_split);
+  if (grid.y > 1 && (part == nullptr || tickets == nullptr)) return (int)cudaErrorInvalidValue;
+  mma_gemm_decode<TA, TC, MT><<<grid, kDThreads, smem, stream>>>(a, b, c, d, M, N, K, per_split,
+                                                                 part, tickets);
+  return (int)cudaGetLastError();
+}
+
+template <typename TA, typename TC>
+int launch_wgmma(const void* a, const void* b, const TC* c, TC* d, int M, int N, int K,
+                 cudaStream_t stream) {
+  const CUtensorMapDataType type = std::is_same<TA, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap map_a, map_b;
+  int e = wgmma::encode_tiled_2d(&map_a, a, type, M, K, kWM, kWK);
+  if (!e) e = wgmma::encode_tiled_2d(&map_b, b, type, K, N, kWK, 64);
+  if (!e) e = attn::allow_smem(wgmma_gemm_kernel<TA, TC>, kWSmem);
+  if (e) return e;
+  const dim3 grid((M + kWM - 1) / kWM, (N + kWN - 1) / kWN);
+  const bool pairs = reinterpret_cast<uintptr_t>(c) % (2 * sizeof(TC)) == 0 &&
+                     reinterpret_cast<uintptr_t>(d) % (2 * sizeof(TC)) == 0;
+  wgmma_gemm_kernel<TA, TC>
+      <<<grid, kWThreads, kWSmem, stream>>>(map_a, map_b, c, d, M, N, K, pairs);
+  return (int)cudaGetLastError();
+}
+
 template <typename TA, typename TC>
 int launch_mma(const void* a, const void* b, const void* c, void* d, int M, int N, int K,
-               cudaStream_t stream) {
+               int splits, float* part, int* tickets, cudaStream_t stream) {
   const auto* ap = static_cast<const uint16_t*>(a);
   const auto* bp = static_cast<const uint16_t*>(b);
   const auto* cp = static_cast<const TC*>(c);
   auto* dp = static_cast<TC*>(d);
   if (aligned16(a) && aligned16(b) && K % 8 == 0 && N % 8 == 0) {
-    const int e = attn::allow_smem(mma_gemm_pipelined<TA, TC>, kPSmem);
-    if (e) return e;
-    const dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM);
-    mma_gemm_pipelined<TA, TC><<<grid, kPThreads, kPSmem, stream>>>(ap, bp, cp, dp, M, N, K);
-  } else {
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    mma_gemm_kernel<TA, TC><<<grid, kMmaThreads, 0, stream>>>(ap, bp, cp, dp, M, N, K);
+    if (M <= 16)
+      return launch_decode<TA, TC, 1>(ap, bp, cp, dp, M, N, K, splits, part, tickets, stream);
+    if (M <= 32)
+      return launch_decode<TA, TC, 2>(ap, bp, cp, dp, M, N, K, splits, part, tickets, stream);
+    if (M <= 64)
+      return launch_decode<TA, TC, 4>(ap, bp, cp, dp, M, N, K, splits, part, tickets, stream);
+    return launch_wgmma<TA, TC>(a, b, cp, dp, M, N, K, stream);
   }
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  mma_gemm_kernel<TA, TC><<<grid, kMmaThreads, 0, stream>>>(ap, bp, cp, dp, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -434,14 +667,14 @@ int launch_fma(const void* a, const void* b, const void* c, void* d, int M, int 
 
 template <typename TC>
 int launch_c(const void* a, const void* b, const void* c, void* d, int M, int N, int K,
-             int ab_dtype, cudaStream_t stream) {
+             int ab_dtype, int splits, float* part, int* tickets, cudaStream_t stream) {
   switch (ab_dtype) {
     case 0:
       return launch_fma<TC>(a, b, c, d, M, N, K, stream);
     case 1:
-      return launch_mma<__nv_bfloat16, TC>(a, b, c, d, M, N, K, stream);
+      return launch_mma<__nv_bfloat16, TC>(a, b, c, d, M, N, K, splits, part, tickets, stream);
     case 2:
-      return launch_mma<__half, TC>(a, b, c, d, M, N, K, stream);
+      return launch_mma<__half, TC>(a, b, c, d, M, N, K, splits, part, tickets, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -450,19 +683,27 @@ int launch_c(const void* a, const void* b, const void* c, void* d, int M, int N,
 }  // namespace
 
 // Dtype codes: 0 = float32, 1 = bfloat16, 2 = float16; ab_dtype is a's and
-// b's, c_dtype c's and d's.  Returns the launch's cudaError_t (0 on
-// success); the kernel runs on `stream` and is not waited for.
+// b's, c_dtype c's and d's.  splits: the split over K the decode path may
+// take (1: none); part (splits x M x N f32) and tickets (ceil(N / 64)
+// int32, zero, and zero again after every launch) are its scratch, which
+// a launch of splits > 1 on the decode path needs.  Returns the launch's
+// cudaError_t (0 on success); the kernel runs on `stream` and is not
+// waited for.
 extern "C" int mfma_gemm_launch(const void* a, const void* b, const void* c, void* d, int M,
-                                int N, int K, int ab_dtype, int c_dtype, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || (M + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
+                                int N, int K, int ab_dtype, int c_dtype, int splits, void* part,
+                                void* tickets, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || (M + kBM - 1) / kBM > 65535)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pf = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
   switch (c_dtype) {
     case 0:
-      return launch_c<float>(a, b, c, d, M, N, K, ab_dtype, st);
+      return launch_c<float>(a, b, c, d, M, N, K, ab_dtype, splits, pf, tk, st);
     case 1:
-      return launch_c<__nv_bfloat16>(a, b, c, d, M, N, K, ab_dtype, st);
+      return launch_c<__nv_bfloat16>(a, b, c, d, M, N, K, ab_dtype, splits, pf, tk, st);
     case 2:
-      return launch_c<__half>(a, b, c, d, M, N, K, ab_dtype, st);
+      return launch_c<__half>(a, b, c, d, M, N, K, ab_dtype, splits, pf, tk, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,7 +17,7 @@
 //   the source is not valid.
 // * pack2 / split2: f32 pairs as fragment registers of T, rounded once
 //   (pack2) or as a high and a low part whose sum keeps f32's precision
-//   (split2).
+//   (split2); unpack2 the f32 pair a register of T holds.
 
 #pragma once
 
@@ -97,6 +97,20 @@ __device__ __forceinline__ void split2<__half>(float x0, float x1, uint32_t& hi,
   const __half2 r = __floats2half2_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// The two elements of a fragment register of T as f32, the low half first.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t r);
+
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t r) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r));
+}
+
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t r) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&r));
 }
 
 // Four 8 x 8 matrices of 16-bit elements from shared memory, each row of

@@ -9,8 +9,11 @@ is f32, bf16 or f16.
 
 * On a CUDA tensor :func:`mfma_gemm` launches the kernel in
   ``csrc/mfma_gemm.cu`` (built on first use) or raises: bf16 and f16
-  operands run on the tensor cores (``mma.sync``), f32 operands on CUDA
-  cores in exact f32.
+  operands run on the tensor cores (M > 64: ``wgmma`` fed by TMA; M <= 64,
+  the decode rows: ``mma.sync`` streaming b, split over K by
+  :func:`decode_splits` when its column tiles are too few to fill the
+  card), f32 operands on CUDA cores in exact f32.  The wrapper keeps the
+  split's f32 partials and its tickets per (device, stream).
 * On a CPU tensor it runs :func:`mfma_gemm_plain`, the kernel's K loop
   written with PyTorch ops.  The CPU tests hold it against the
   reference's Pallas kernel in interpret mode, and ``chip_smoke.py``
@@ -38,13 +41,20 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["mfma_gemm", "mfma_gemm_plain", "LAUNCHES", "BLOCK_K"]
+__all__ = ["mfma_gemm", "mfma_gemm_plain", "decode_splits", "LAUNCHES",
+           "BLOCK_K"]
 
 NAME = "mfma_gemm"
 LAUNCHES: Dict[str, int] = {NAME: 0}
-BLOCK_K = 32                    # contraction depth of a kernel slice (kBK)
+BLOCK_K = 64                    # contraction depth of a kernel slice (kWK, kDK)
+DECODE_ROWS = 64                # M up to this takes the decode path
+DECODE_COLUMNS = 64             # output columns of a decode block (kDN)
+BLOCKS_PER_SM = 6               # the decode path's target, as splits allow
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+_SCRATCH: Dict[tuple, tuple] = {}
+_SMS: Dict[int, int] = {}
 
 
 def mfma_gemm_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
@@ -85,6 +95,35 @@ def _check(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> None:
         raise ValueError(f"{NAME}: operands must be contiguous")
 
 
+def decode_splits(M: int, N: int, K: int, sms: int) -> int:
+    """The split over K the decode path (M <= 64) takes: enough splits
+    of its 64-column tiles for six blocks an SM (the card keeps four of
+    them resident; the rest follow as the first finish, which keeps b's
+    bytes in flight to the end), each split at least 4 slices of
+    ``BLOCK_K`` deep, at most 8 splits."""
+    tiles = -(-N // DECODE_COLUMNS)
+    if M > DECODE_ROWS or tiles >= BLOCKS_PER_SM * sms:
+        return 1
+    slices = -(-K // BLOCK_K)
+    return max(1, min(-(-BLOCKS_PER_SM * sms // tiles), slices // 4, 8))
+
+
+def _split_scratch(device, stream: int, n_part: int, n_tickets: int):
+    """(partials, tickets) pointers for a split launch on ``stream``: the
+    f32 partials each launch writes before it reads them, and the tickets,
+    zero between launches (the last block of each column tile resets its
+    own).  Drawn once a stream, grown when a launch needs more."""
+    key = (device, stream)
+    part, tickets = _SCRATCH.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 1024), dtype=torch.int32,
+                              device=device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    _SCRATCH[key] = (part, tickets)
+    return part.data_ptr(), tickets.data_ptr()
+
+
 def _kernel(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
             ) -> torch.Tensor:
     M, K = a.shape
@@ -94,12 +133,21 @@ def _kernel(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
                          "kernel's range (at most 65535 tiles of 64 rows, "
                          "each dimension below 2**31)")
     d = torch.empty((M, N), dtype=c.dtype, device=c.device)
-    with torch.cuda.device(a.device):
-        build.launch(NAME, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p],
-                     a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
-                     M, N, K, _DTYPE_CODES[a.dtype], _DTYPE_CODES[c.dtype],
-                     torch.cuda.current_stream(a.device).cuda_stream)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    splits, part, tickets = 1, None, None
+    if a.dtype != torch.float32 and M <= DECODE_ROWS:
+        index = a.device.index
+        if index not in _SMS:
+            _SMS[index] = torch.cuda.get_device_properties(
+                a.device).multi_processor_count
+        splits = decode_splits(M, N, K, _SMS[index])
+        if splits > 1:
+            part, tickets = _split_scratch(a.device, stream, splits * M * N,
+                                           -(-N // DECODE_COLUMNS))
+    build.launch(NAME, _ARGS, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                 d.data_ptr(), M, N, K, _DTYPE_CODES[a.dtype],
+                 _DTYPE_CODES[c.dtype], splits, part, tickets, stream,
+                 device=a.device)
     LAUNCHES[NAME] += 1
     return d
 

@@ -33,6 +33,7 @@ rtol 2**-10 (one ulp of C's dtype: both round one f32 sum once).
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import pytest
@@ -446,15 +447,31 @@ def test_moe_engines_kernel_path_matches_plain_path(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,nh,hd,G,ds,offset", [
-    (1, 64, 2, 16, 1, 16, 0),       # one chunk
+    (1, 64, 2, 16, 1, 16, 0),       # one row tile of a chunk
     (2, 200, 4, 32, 2, 16, 0),      # ragged S, two groups
     (1, 130, 8, 64, 1, 128, 0),     # mamba2's head and state size, ragged
     (2, 52, 4, 64, 2, 64, 0),       # shorter than a chunk
     (1, 333, 4, 16, 4, 32, 0),      # one head per group
     (1, 100, 4, 64, 1, 128, 1),     # operands not 16-byte aligned
+    (1, 300, 2, 96, 1, 32, 0),      # hd 96: a full and a partial 64-column block
 ])
 def test_mamba2_ssd_kernel_matches_plain(cuda, B, S, nh, hd, G, ds, offset,
                                          dtype):
+    _ssd_case(B, S, nh, hd, G, ds, offset, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 256, 257])
+def test_mamba2_ssd_chunk_edges(cuda, S, dtype):
+    """S at the edges of the kernels' 128-row chunks and 64-row tiles,
+    at mamba2's head and state size with two groups: one count per call,
+    y and the final state equal to the plain version's."""
+    _ssd_case(1, S, 4, 64, 2, 128, 0, dtype)
+
+
+def _ssd_case(B, S, nh, hd, G, ds, offset, dtype):
     g = torch.Generator().manual_seed(S + ds + G)
 
     def operand(shape, dt, scale=0.5):
@@ -537,9 +554,9 @@ GEMM_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 @pytest.mark.parametrize("ab_dtype", GEMM_DTYPES)
 @pytest.mark.parametrize("M,N,K,offset", [
     (100, 60, 200, 0),      # ragged M, N and K (N % 8 != 0: element loads)
-    (130, 136, 64, 0),      # K and N multiples of 8: the cp.async pipeline
-    (200, 264, 520, 0),     # pipeline: ragged tiles, a partial last slice
-    (8, 256, 1032, 0),      # pipeline: decode-like rows, 33 slices
+    (130, 136, 64, 0),      # K and N multiples of 8: wgmma fed by TMA
+    (200, 264, 520, 0),     # wgmma: ragged tiles, a partial last slice
+    (8, 256, 1032, 0),      # the decode path, split over K (17 slices)
     (8, 72, 300, 1),        # decode-like rows; a, b and c not aligned
 ])
 def test_mfma_gemm_kernel_matches_plain(cuda, M, N, K, offset, ab_dtype,
@@ -563,6 +580,89 @@ def test_mfma_gemm_kernel_matches_plain(cuda, M, N, K, offset, ab_dtype,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=rtol,
                                atol=atol)
+
+
+def _gemm_operands(g, M, N, K, ab_dtype, c_dtype):
+    a = _randn(g, M, K).to(ab_dtype).cuda()
+    b = (_randn(g, K, N) / math.sqrt(K)).to(ab_dtype).cuda()
+    return a, b, _randn(g, M, N).to(c_dtype).cuda()
+
+
+def _gemm_held_to_plain(a, b, c):
+    before = launch_counts()["mfma_gemm"]
+    got = mfma_gemm(a, b, c)
+    torch.cuda.synchronize()
+    assert launch_counts()["mfma_gemm"] == before + 1
+    want = mfma_gemm_plain(a, b, c)
+    assert torch.isfinite(got).all() and got.dtype == c.dtype
+    atol, rtol = GEMM_TOL[c.dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 72])
+@pytest.mark.parametrize("N", [8, 264])
+@pytest.mark.parametrize("M", [1, 65, 130, 257])
+def test_mfma_gemm_tile_edges(cuda, M, N, K):
+    """bf16 operands with K and N multiples of 8, off every tile edge:
+    M = 1 on the decode path, M 65, 130 and 257 on the wgmma path (1, 2
+    and 3 row tiles of 128, the last nearly empty), N 8 and 264 (a box of
+    B mostly past N, and a second column tile of 8), K 8 and 72 (one
+    slice mostly past K, and a partial second)."""
+    g = torch.Generator().manual_seed(M * N + K)
+    _gemm_held_to_plain(*_gemm_operands(g, M, N, K, torch.bfloat16,
+                                        torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype", GEMM_DTYPES)
+def test_mfma_gemm_wgmma_c_off_pairs(cuda, c_dtype):
+    """The wgmma path (aligned a and b) with c one element off, so that
+    its pairs of C are not aligned for one access: C is read and D
+    written element by element, and both equal the plain version."""
+    g = torch.Generator().manual_seed(17)
+    a, b, _ = _gemm_operands(g, 130, 264, 72, torch.bfloat16, c_dtype)
+    c = _randn(g, 130 * 264 + 1).to(c_dtype).cuda()[1:].view(130, 264)
+    assert c.data_ptr() % (2 * c.element_size()) != 0
+    _gemm_held_to_plain(a, b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_dtype", GEMM_DTYPES)
+@pytest.mark.parametrize("ab_dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M,N,K", [
+    (8, 8192, 512),     # 128 column tiles: split over K in two
+    (33, 2048, 4096),   # 48 rows of fragments, 32 tiles: eight splits
+    (64, 18944, 256),   # K of four slices: no split
+])
+def test_mfma_gemm_decode_path(cuda, M, N, K, ab_dtype, c_dtype):
+    """The decode path (M <= 64) at each row-fragment count, with and
+    without its split over K; the split scratch and tickets are reused
+    across the calls on one stream."""
+    g = torch.Generator().manual_seed(M + N + K)
+    for _ in range(2):
+        _gemm_held_to_plain(*_gemm_operands(g, M, N, K, ab_dtype, c_dtype))
+
+
+@pytest.mark.cuda
+def test_mfma_gemm_library_runs_hgmma(cuda):
+    """The built library holds wgmma instructions (HGMMA in its SASS)."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or next(
+        (str(Path(r) / "bin" / "cuobjdump") for r in
+         (os.environ.get("CUDA_HOME"), "/usr/local/cuda")
+         if r and (Path(r) / "bin" / "cuobjdump").is_file()), None)
+    if tool is None:
+        pytest.skip("cuobjdump is not installed")
+    build.load("mfma_gemm")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(
+        "mfma_gemm"))], capture_output=True, text=True, check=True).stdout
+    assert "HGMMA" in sass
 
 
 @pytest.mark.cuda

@@ -6,7 +6,12 @@ the sequential oracles of both packages, plus the wrapper's contracts.
 Cases are the reference's kernel sweep (``tests/test_kernels_ssd.py``),
 two groups of B/C included, and a ragged S = 52, which the reference
 pads with dt = 0 identity steps and the port masks: y and the final
-state must equal the unpadded oracle's.
+state must equal the unpadded oracle's.  The plain version's four
+passes (the kernels' structure: scores once per group, chunk states
+from zero, the scan over chunks, the outputs) are also swept over S in
+(1, 63, 64, 65, 130), one and two groups and every state size, in f32
+and bf16, and its carried states are held to the step-by-step
+recurrence at every chunk's first row.
 
 Tolerance: float32 atol and rtol 2e-3, the reference's own for its SSD
 kernel against the oracle (a chunked scan sums in another order than the
@@ -17,6 +22,8 @@ orders; the f32 state within 2e-3.  The CUDA kernel is held to the
 plain version on the card by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.
 """
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +36,9 @@ from repro.kernels.ref import mamba2_ssd_ref as jax_ref
 from repro_torch.kernels import launch_counts, mamba2_ssd, mamba2_ssd_plain
 from repro_torch.kernels.mamba2_ssd import CHUNK
 from repro_torch.kernels.ref import mamba2_ssd_ref
+
+# the module (the package re-exports its function under the same name)
+ssd_mod = importlib.import_module("repro_torch.kernels.mamba2_ssd")
 
 TOL = 2e-3
 
@@ -123,9 +133,61 @@ def test_plain_matches_pallas_kernel_bf16(name):
     _close(h, hp)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ds", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 130])
+def test_four_passes_match_pallas_kernel(S, G, ds, dtype):
+    """The plain version's four passes (scores once per group and cum,
+    chunk states from zero, the scan over chunks, the outputs) at the
+    reference planner's chunk against the Pallas kernel in interpret
+    mode, across ragged S, both group counts and every state size."""
+    nh = 2 * G
+    arrs = _inputs(1, S, nh, 16, G, ds, seed=S + ds + G)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    yp, hp = _pallas(arrs, None, jdt)
+    y, h = mamba2_ssd_plain(*_torch(arrs, tdt),
+                            chunk=_plan_chunk(1, S, nh, 16, G, ds))
+    assert y.dtype == tdt and h.dtype == torch.float32
+    if dtype == "float32":
+        _close(y, yp)
+    else:
+        np.testing.assert_allclose(y.float().numpy(), yp, rtol=2.0 ** -7,
+                                   atol=2e-2)
+    _close(h, hp)
+
+
+@pytest.mark.parametrize("chunk", [16, CHUNK])
+def test_carried_states_equal_the_recurrence(chunk):
+    """Passes (b) and (c): the state each chunk starts from equals the
+    step-by-step recurrence h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T
+    (float64) at the chunk's first row, and the final state its last."""
+    B, S, nh, hd, G, ds = 2, 300, 4, 16, 2, 32
+    x, dt, A, Bm, Cm = _inputs(B, S, nh, hd, G, ds, seed=15)
+    hpg = nh // G
+    h = np.zeros((B, nh, hd, ds))
+    at_row = {}
+    for t in range(S):
+        if t % chunk == 0:
+            at_row[t] = h.copy()
+        Bt = np.repeat(Bm[:, t].astype(np.float64), hpg, axis=1)
+        h = np.exp(dt[:, t, :, None, None] * A[None, :, None, None]) * h \
+            + (dt[:, t, :, None] * x[:, t])[..., None] * Bt[:, :, None, :]
+    tx, tdt, tA, tB, tC = _torch((x, dt, A, Bm, Cm))
+    cum, dtq, _ = ssd_mod._cum_and_scores(tdt, tA, tB, tC, chunk)
+    local = ssd_mod._local_states(tx, dtq, cum, tB, chunk)
+    starts, final = ssd_mod._carried_states(local, cum)
+    assert starts.shape == (B, -(-S // chunk), nh, hd, ds)
+    for c in range(starts.shape[1]):
+        np.testing.assert_allclose(starts[:, c].numpy(), at_row[c * chunk],
+                                   rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(final.numpy(), h, rtol=TOL, atol=TOL)
+
+
 def test_chunk_does_not_change_the_result():
-    """Chunked SSD is exact at any chunk: the kernel's chunk (64) gives
-    the reference planner's result (chunk 256) on a 2-chunk sequence."""
+    """Chunked SSD is exact at any chunk: the kernel's chunk (128) gives
+    the reference planner's result (chunk 256) on a 4-chunk sequence."""
     arrs = _inputs(1, 512, 2, 16, 1, 16, seed=14)
     y64, h64 = mamba2_ssd_plain(*_torch(arrs), chunk=CHUNK)
     y256, h256 = mamba2_ssd_plain(*_torch(arrs), chunk=256)

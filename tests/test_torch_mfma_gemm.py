@@ -22,7 +22,7 @@ from repro.kernels import ops
 from repro.kernels.ref import mfma_gemm_ref as jax_ref
 from repro_torch.core.functional import mfma_apply
 from repro_torch.kernels import launch_counts, mfma_gemm, mfma_gemm_plain
-from repro_torch.kernels.mfma_gemm import BLOCK_K
+from repro_torch.kernels.mfma_gemm import BLOCK_K, decode_splits
 from repro_torch.kernels.ref import mfma_gemm_ref
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -67,6 +67,23 @@ def test_plain_matches_pallas_kernel_sweep(m, n, k, dtype):
                          block_k=128, interpret=True)
     got = mfma_gemm_plain(*_torch(arrs, dtype), block_k=128)
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("m,n,k,pallas_k", [(128, 128, 64, 64),
+                                            (128, 256, 384, 128),
+                                            (256, 128, 1024, 128)])
+@pytest.mark.parametrize("dtype", list(TORCH_DT))
+def test_plain_at_kernel_block_k_matches_pallas_kernel(m, n, k, pallas_k,
+                                                       dtype):
+    """The plain version at the kernels' own 64-deep slices (``BLOCK_K``)
+    against the Pallas kernel at its 128-deep blocks (or one 64-deep
+    block when K = 64): the K split changes only the summation order."""
+    assert BLOCK_K == 64
+    arrs = _case(m, n, k, seed=m + 2 * n + k)
+    want = ops.mfma_gemm(*_jax(arrs, dtype), block_m=128, block_n=128,
+                         block_k=pallas_k, interpret=True)
+    got = mfma_gemm_plain(*_torch(arrs, dtype))
     _close(got, want)
 
 
@@ -187,6 +204,21 @@ def test_block_k_invariance(block_k):
     ai, bi = a.round(), b.round()
     assert torch.equal(mfma_gemm_plain(ai, bi, c.round(), block_k=block_k),
                        mfma_gemm_ref(ai, bi, c.round()))
+
+
+@pytest.mark.parametrize("M,N,K,want", [
+    (8, 18944, 3584, 3),     # qwen2-7b gate/up at decode: 296 column tiles
+    (8, 3584, 18944, 8),     # its down projection: 56 tiles, at most 8
+    (8, 256, 1032, 4),       # 17 slices: at least 4 slices a split
+    (64, 18944, 256, 1),     # 4 slices: no split
+    (65, 8, 4096, 1),        # past the decode rows: the wgmma path
+    (1, 64 * 6 * 132, 4096, 1),  # six blocks an SM without a split
+])
+def test_decode_splits(M, N, K, want):
+    """The decode path's split over K on a 132-SM card: enough splits of
+    the 64-column tiles for six blocks an SM, each split at least four
+    64-deep slices, at most eight splits, none past 64 rows."""
+    assert decode_splits(M, N, K, 132) == want
 
 
 def test_wrapper_runs_plain_on_cpu_without_counting():
