@@ -110,10 +110,47 @@ depends on it, so that one run reports every such failure):
     3 apart at the decode and prefill shapes, the GEMM against
     compositions of ``core.functional.mfma_apply`` micro-ops
     (fp32_16x16x4fp32, fp32_16x16x16bf16) on the card, and every
-    registry instruction's ``mfma_apply`` on the card against the CPU.
+    registry instruction's ``mfma_apply`` on the card against the CPU;
+16. the dense catalog: internlm2-20b (G = 6), mistral-nemo-12b (head dim
+    128 where d_model / H is 160) and yi-34b (G = 7) at full width, each
+    cut in depth to 8 layers (random bf16 weights, ~8.4, ~7.0 and ~10.8
+    GB): phase 2's kernel checks and timings at its grouping, phase 3's
+    paged serve (8 shared-prefix requests; paged n_layers x ticks) and
+    the sync engine on prompts of 2000 and 517 tokens (flash n_layers x
+    prefills, decode n_layers x steps), each with phase 3 and 4's logit
+    and stream checks;
+17. deepseek-v2-lite-16b at full width and depth (27 layers: MLA, one
+    dense FFN layer, 26 MoE layers of 64 experts top-6 and 2 shared
+    experts; ~31 GB): ``moe_gmm`` held to its plain version at its decode
+    and prefill shapes and timed beside ``torch.bmm`` and its bound; the
+    sync engine on prompts of 2000 and 517 tokens (``moe_gmm`` 3 x 26 x
+    steps, flash and decode 0: MLA attends on the plain path); the
+    streams by phase 9's rules; a decode step of 8 x 512-token prompts
+    held to float32 (the weights converted in place): the kernel path's
+    logits and its routing no further from float32's than 1.5x the plain
+    path's, phase 9's routing rule printed beside the plain path's own
+    token-by-token run (at this depth the rule does not hold between the
+    plain path and itself);
+18. llama-3.2-vision-90b at full width cut to two 5-layer periods (8 self-
+    and 2 gated cross-attention layers, ~21.3 GB), gates and (1, 4100,
+    8192) media from the seed: non-causal flash at S = 2000, T = 4100
+    and decode over 4100 media rows (B = 1 and 8) held to their plain
+    versions and timed beside SDPA and their bounds; then ``prefill`` and
+    16 greedy ``decode_step`` s for prompts of 2000 and 517 tokens (flash
+    10 x prefills, decode 10 x steps), a prefill's and a decode step's
+    logits against the plain path with the float32 yardstick, and the
+    streams against the plain path's;
+19. whisper-base at full width and depth (6 encoder layers over (1,
+    1500, 512) frames from the seed, 6 decoder layers): non-causal flash
+    at S = T = 1500 held and timed beside SDPA and its bound,
+    ``_encode`` held to the plain path's (2e-2), then the greedy loops
+    of 18 for prompts of 448 and 117 tokens (flash 12 x prefills,
+    decode 6 x steps).
 
-The second-to-last line is a JSON record of every kernel, the last line
-``{"ok": true, "device": {...}}``.  It needs one GPU, ``nvcc`` (under
+Each phase prints its wall time.  The last three lines are the card's
+name and power limit, a JSON record of every kernel (with its timed
+``shapes`` and ``launches_by_phase``) and ``{"ok": true, "device":
+{...}}``.  It needs one GPU, ``nvcc`` (under
 ``$CUDA_HOME`` or ``/usr/local/cuda``) and no network; it never imports
 jax or the reference package.
 """
@@ -177,6 +214,24 @@ SSD_KERNELS = ("ssd_chunk_kernel", "ssd_scan_kernel", "ssd_output_kernel")
 # the reference's limit for the prefill -> decode state handoff of its
 # bf16 SSM model (tests/test_arch_smoke.py)
 HANDOFF_TOL = 3e-2
+# the dense catalog at full width, each cut to 8 layers (~8.4, ~7.0 and
+# ~10.8 GB of bf16 weights; yi-34b's 60 layers, ~69 GB, leave the card no
+# room, and the kernels see the same shapes at every layer)
+DENSE = dict(archs=("internlm2-20b", "mistral-nemo-12b", "yi-34b"),
+             n_layers=8, seed=7)
+DENSE_SYNC = dict(max_len=2048, prompts=(2000, 517), n_steps=16, seed=8)
+# deepseek-v2-lite-16b at full width and depth (~15.7 B params, ~31 GB)
+MLA = dict(arch="deepseek-v2-lite-16b", seed=9)
+MLA_SYNC = dict(max_len=2048, prompts=(2000, 517), n_steps=16,
+                check_batch=(8, 512), seed=10)
+# llama-3.2-vision-90b at full width cut to two 5-layer periods (8 self-
+# and 2 cross-attention layers, ~10.7 B params, ~21.3 GB)
+VLM = dict(arch="llama-3.2-vision-90b", n_layers=10, seed=11)
+VLM_RUN = dict(max_len=2048, prompts=(2000, 517), n_steps=16, seed=12)
+# whisper-base at full width and depth; its decoder's published context
+# is 448 tokens
+ENC = dict(arch="whisper-base", seed=13)
+ENC_RUN = dict(max_len=512, prompts=(448, 117), n_steps=16, seed=14)
 
 
 class Failure(Exception):
@@ -418,12 +473,12 @@ def phase_kernels(torch, cfg, page: int, nb: int):
             "library_ms": library_ms}
 
 
-def flash_records(torch, cfg):
-    """Flash attention at full width (B = 1, 28 query heads over 4 KV
-    heads of 128, bf16): a causal 2048-row prefill (timed), a ragged
-    2000-row one, and a 2048-row one with kv_len 1537, whose rows past
-    kv_len hold finite poison."""
-    import torch.nn.functional as F
+def flash_records(torch, cfg, *, moe_grouping: bool = True):
+    """Flash attention at ``cfg``'s full width (B = 1; qwen2-7b: 28 query
+    heads over 4 KV heads of 128, bf16): a causal 2048-row prefill
+    (timed), a ragged 2000-row one, and a 2048-row one with kv_len 1537,
+    whose rows past kv_len hold finite poison; with ``moe_grouping``
+    also qwen3-moe's G = 16."""
     from repro_torch.kernels import flash_attention, flash_attention_plain
     g = torch.Generator(device="cuda").manual_seed(2)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -452,55 +507,79 @@ def flash_records(torch, cfg):
     from repro_torch.configs import get_config
     moe = get_config(MOE["arch"])
     S = 1000
-    q = randn(1, S, moe.n_heads, moe.hd)
-    k, v = randn(1, S, moe.n_kv_heads, moe.hd), randn(1, S, moe.n_kv_heads,
-                                                        moe.hd)
-    got = flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    err = held_to_plain(torch, "flash_attention (G=16)", got,
-                        flash_attention_plain(q, k, v, causal=True))
-    max_abs_err = max(max_abs_err, err)
-    print(f"flash_attention causal S=T={S} H={moe.n_heads} KV="
-          f"{moe.n_kv_heads} hd={moe.hd} bf16 ({moe.name}'s grouping): max "
-          f"abs err {err:.3g}")
+    if moe_grouping:
+        q = randn(1, S, moe.n_heads, moe.hd)
+        k, v = randn(1, S, moe.n_kv_heads, moe.hd), randn(
+            1, S, moe.n_kv_heads, moe.hd)
+        got = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = held_to_plain(torch, "flash_attention (G=16)", got,
+                            flash_attention_plain(q, k, v, causal=True))
+        max_abs_err = max(max_abs_err, err)
+        print(f"flash_attention causal S=T={S} H={moe.n_heads} KV="
+              f"{moe.n_kv_heads} hd={moe.hd} bf16 ({moe.name}'s grouping): "
+              f"max abs err {err:.3g}")
 
     S = 2048
     q, k, v = randn(1, S, H, hd), randn(1, S, KV, hd), randn(1, S, KV, hd)
-    want = flash_attention_plain(q, k, v, causal=True)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-    def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-
-    lib_err = float((library().transpose(1, 2).float()
-                     - want.float()).abs().max())
-    flush = l2_flush(torch)
-    ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True), 100,
-                 flush)
-    plain_ms = time_ms(torch, lambda: flash_attention_plain(
-        q, k, v, causal=True), 10, flush)
-    library_ms = time_ms(torch, library, 100, flush)
-    rec = {"device_ms": device_ms(
-        torch, lambda: flash_attention(q, k, v, causal=True), 50, flush),
-        "library_device_ms": device_ms(torch, library, 50, flush),
-        "host_us": host_us(torch, lambda: flash_attention(q, k, v,
-                                                          causal=True))}
-    pairs = S * (S + 1) // 2                  # (query, key) pairs unmasked
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * pairs * H * hd                # q.k and p.v, 2 flops a MAC
-    bound_ms, bound_by = bound(nbytes, flops)
+    rec = flash_timing(torch, q, k, v, causal=True,
+                       want=flash_attention_plain(q, k, v, causal=True))
+    ms, flops = rec["ms"], rec["flops"]
     print(f"flash_attention causal S=T={S}: kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, sdpa "
-          f"{library_ms:.4f} ms (max abs err vs plain {lib_err:.3g}), bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} flops); "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {rec['plain_ms']:.4f} ms, "
+          f"sdpa {rec['library_ms']:.4f} ms (max abs err vs plain "
+          f"{rec['lib_err']:.3g}), bound {rec['bound_ms']:.5f} ms "
+          f"({rec['bound_by']}: {rec['nbytes']} bytes, {flops} flops); "
           + readings(rec))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:85",
             "launches": None, "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+
+
+def flash_timing(torch, q, k, v, *, causal: bool, want=None):
+    """Time ``flash_attention`` on (q, k, v) beside its plain version and
+    SDPA, and compute its bound (causal: S = T, the triangle's pairs;
+    else every (query, key) pair); with no ``want`` given, first hold the
+    kernel to the plain version."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    rec = {}
+    if want is None:
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, causal=causal)
+        rec["max_abs_err"] = held_to_plain(
+            torch, f"flash_attention (S={q.shape[1]}, T={k.shape[1]}, "
+                   f"causal={causal})", got, want)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    def kernel():
+        return flash_attention(q, k, v, causal=causal)
+
+    rec["lib_err"] = float((library().transpose(1, 2).float()
+                            - want.float()).abs().max())
+    flush = l2_flush(torch)
+    rec["ms"] = time_ms(torch, kernel, 100, flush)
+    rec["plain_ms"] = time_ms(torch, lambda: flash_attention_plain(
+        q, k, v, causal=causal), 10, flush)
+    rec["library_ms"] = time_ms(torch, library, 100, flush)
+    rec["device_ms"] = device_ms(torch, kernel, 50, flush)
+    rec["library_device_ms"] = device_ms(torch, library, 50, flush)
+    rec["host_us"] = host_us(torch, kernel)
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    pairs = B * (S * (S + 1) // 2 if causal else S * T)  # pairs unmasked
+    rec["nbytes"] = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rec["flops"] = 4 * pairs * H * hd          # q.k and p.v, 2 flops a MAC
+    rec["bound_ms"], rec["bound_by"] = bound(rec["nbytes"], rec["flops"])
+    return rec
 
 
 def decode_record(torch, cfg):
@@ -950,22 +1029,25 @@ def phase_sync_profile(torch, cfg, params):
 
 # -- phase 7: the MoE grouped GEMM ------------------------------------------
 
-def moe_gmm_record(torch, cfg):
-    """``moe_gmm`` at qwen3-moe's full width (E = 128 experts, bf16) at
-    the shapes its MoE layers give it: a paged decode tick's gate/up and
-    down products (8 slots x capacity 4 = 32 rows an expert), a 2000-row
-    sync prefill's gate/up (capacity 160), and a ragged case (C = 44,
-    N = 1000).  Each is held to the plain version; the first three are
-    timed beside ``torch.bmm`` and their bound."""
+def moe_gmm_record(torch, cfg, cases=None, seed: int = 4):
+    """``moe_gmm`` at ``cfg``'s full width (bf16) at the shapes its MoE
+    layers give it, by default qwen3-moe's (E = 128 experts): a paged
+    decode tick's gate/up and down products (8 slots x capacity 4 = 32
+    rows an expert), a 2000-row sync prefill's gate/up (capacity 160),
+    and a ragged case (C = 44, N = 1000); ``cases`` maps a label to
+    (C, K, N, timed).  Each is held to the plain version; the timed ones
+    beside ``torch.bmm`` and their bound.  The record is the first timed
+    case's, with every timed case under ``shapes``."""
     from repro_torch.kernels import moe_gmm, moe_gmm_plain
-    g = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     E, D, F = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
-    cases = {"decode gate/up": (32, D, F, True),
-             "decode down": (32, F, D, True),
-             "prefill gate/up (S = 2000)": (160, D, F, True),
-             "ragged C = 44, N = 1000": (44, D, 1000, False)}
+    if cases is None:
+        cases = {"decode gate/up": (32, D, F, True),
+                 "decode down": (32, F, D, True),
+                 "prefill gate/up (S = 2000)": (160, D, F, True),
+                 "ragged C = 44, N = 1000": (44, D, 1000, False)}
     flush = l2_flush(torch)
-    record, max_abs_err = None, 0.0
+    record, max_abs_err, shapes = None, 0.0, []
     for label, (C, K, N, timed) in cases.items():
         x = torch.randn((E, C, K), generator=g, device="cuda").to(
             torch.bfloat16)
@@ -1000,17 +1082,20 @@ def moe_gmm_record(torch, cfg):
                     f"{lib_err:.3g}), bound {bound_ms:.5f} ms ({bound_by}: "
                     f"{nbytes} bytes, {flops} flops); "
                     + readings(rec, library="torch.bmm"))
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms}
+            shapes.append(dict(row, shape=f"{cfg.name} {label}: E={E} C={C} "
+                               f"K={K} N={N}", max_abs_err=err))
             if record is None:              # the decode tick's shape
-                record = {"name": "moe_gmm", "route": "cuda",
-                          "source": "src/repro_torch/csrc/moe_gmm.cu",
-                          "replaces": "src/repro/kernels/moe_gmm.py:42",
-                          "launches": None, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": library_ms}
+                record = dict({"name": "moe_gmm", "route": "cuda",
+                               "source": "src/repro_torch/csrc/moe_gmm.cu",
+                               "replaces": "src/repro/kernels/moe_gmm.py:42",
+                               "launches": None}, **row)
         print(msg)
         del x, w, got, want
     torch.cuda.empty_cache()
     record["max_abs_err"] = max_abs_err
+    record["shapes"] = shapes
     return record
 
 
@@ -1072,7 +1157,8 @@ def moe_logit_check(torch, label, cfg, plain_cfg, params, state, step):
             "margin": min((m for _, m in first.values()), default=None)}
 
 
-def moe_streams_check(kernel, plain, reqs, p_results, results):
+def moe_streams_check(kernel, plain, reqs, p_results, results, *,
+                      later: bool = False):
     """Greedy streams of the kernel path against the plain path's: a
     stream may first differ at a logit near-tie or at a routing near-tie
     (``repro_torch.serve.parity``, margin ``ROUTING_MARGIN``)."""
@@ -1085,9 +1171,10 @@ def moe_streams_check(kernel, plain, reqs, p_results, results):
             why += f" >= {NEAR_TIE}; first routing difference {d['routing']}"
         print(f"request {d['request']}: kernel and plain paths diverge at "
               f"step {d['step']}, {why}")
-    check(all(d["near_tie"] for d in div), "greedy streams diverge above the "
-          f"{NEAR_TIE} logit and the {ROUTING_MARGIN} routing near-tie "
-          "margins")
+    (check_later if later else check)(
+        all(d["near_tie"] for d in div), f"{kernel.cfg.name}: greedy "
+        f"streams diverge above the {NEAR_TIE} logit and the "
+        f"{ROUTING_MARGIN} routing near-tie margins")
     print(f"greedy tokens: {len(reqs) - len(div)}/{len(reqs)} requests "
           f"identical to the plain path, the rest diverge at near-ties")
 
@@ -1319,18 +1406,23 @@ def n_ssm_layers(cfg) -> int:
 
 
 def check_sync_launches(cfg, launches, prefills: int, steps: int) -> None:
-    """The sync engine's launch counts: ``mamba2_ssd`` twice per SSM layer
-    per prefill, flash once per attention layer per prefill, decode once
-    per attention layer per decode step, ``moe_gmm`` three times per MoE
-    layer per step."""
+    """The sync path's launch counts: ``mamba2_ssd`` twice per SSM layer
+    per prefill, flash once per attention layer (self or cross, and each
+    encoder layer) per prefill, decode once per attention layer per
+    decode step, ``moe_gmm`` three times per MoE layer per step.  MLA
+    layers launch no attention kernel: their value head differs from
+    their query head, which no kernel takes (the reference's dispatch
+    gives them its plain path too)."""
     n_ssm = n_ssm_layers(cfg)
-    n_attn = cfg.n_layers - n_ssm
+    n_attn = 0 if cfg.mla else cfg.n_layers - n_ssm
+    n_enc = cfg.encoder.n_layers if cfg.encoder else 0
     n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
     for name, want, per in (
             ("mamba2_ssd", 2 * n_ssm * prefills,
              f"2 x {n_ssm} SSM layers x {prefills} prefills"),
-            ("flash_attention", n_attn * prefills,
-             f"{n_attn} attention layers x {prefills} prefills"),
+            ("flash_attention", (n_attn + n_enc) * prefills,
+             f"({n_attn} attention + {n_enc} encoder layers) x {prefills} "
+             "prefills"),
             ("decode_attention", n_attn * steps,
              f"{n_attn} attention layers x {steps} decode steps"),
             ("moe_gmm", 3 * n_moe * (prefills + steps),
@@ -1710,6 +1802,542 @@ def phase_mfma_contract(torch):
     return counts["mfma_gemm"]
 
 
+# -- phases 16-19: the rest of the catalog --------------------------------------
+
+ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
+
+
+def shape_row(rec, shape: str):
+    """One timed shape of a kernel, for its ``shapes`` in the record."""
+    return dict({k: rec[k] for k in ROW_KEYS}, shape=shape)
+
+
+def phase_dense_kernels(torch, cfg, params, records):
+    """Phase 2's kernel checks and timings at ``cfg``'s grouping: the
+    paged decode tick, flash over a 2048-row causal prefill and decode
+    over mixed lengths, each added to its kernel's ``shapes``."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    tag = f"{cfg.name} (H={cfg.n_heads} over KV={cfg.n_kv_heads}, G={G}, " \
+          f"hd={cfg.hd})"
+    probe = new_engine(cfg, params)
+    rec = phase_kernels(torch, cfg, probe.page, probe.nb_table)
+    records["paged"]["shapes"].append(shape_row(
+        rec, f"{tag}: B=8 ragged lengths, page {probe.page}"))
+    del probe
+    rec = flash_records(torch, cfg, moe_grouping=False)
+    records["flash"]["shapes"].append(shape_row(
+        rec, f"{tag}: causal S=T=2048"))
+    rec = decode_record(torch, cfg)
+    records["decode"]["shapes"].append(shape_row(
+        rec, f"{tag}: B=8, T=2048, mixed lengths"))
+    torch.cuda.empty_cache()
+
+
+def phase_dense_sync(torch, cfg, params):
+    """The sync engine serves prompts of 2000 and 517 tokens one at a
+    time; launch counts, a decode step's logits against the plain path
+    (with the float32 yardstick) and the streams."""
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(cfg, params, max_len=DENSE_SYNC["max_len"],
+                      device="cuda")
+    eng.generate(np.arange(16, dtype=np.int32)[None], n_steps=2)   # warm-up
+    rng = np.random.default_rng(DENSE_SYNC["seed"])
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, s)
+                    .astype(np.int32), n_steps=DENSE_SYNC["n_steps"])
+            for s in DENSE_SYNC["prompts"]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts())
+    check_sync_launches(cfg, launches, len(reqs), stats.decode_steps)
+    for r in results:
+        check(len(r.tokens) == DENSE_SYNC["n_steps"], f"{len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              "token out of vocabulary range")
+    n_run = sum(len(r.tokens) for r in results)
+    print(f"ServeEngine {cfg.name} ({cfg.n_layers} layers) bf16, max_len "
+          f"{DENSE_SYNC['max_len']}: run(batch=1) of prompts "
+          f"{list(DENSE_SYNC['prompts'])} x {DENSE_SYNC['n_steps']} greedy "
+          f"tokens in {wall:.3f} s ({n_run / wall:.1f} tok/s); {len(reqs)} "
+          f"prefills, {stats.decode_steps} decode steps, launches {launches}")
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    prompt = reqs[0].prompt[None]
+    logits, cache = eng.prefill(prompt)
+    tok = logits.argmax(-1)[:, None]
+    logit_check(torch, f"{cfg.name} sync decode step at position "
+                       f"{prompt.shape[1]}", cfg, plain_cfg, params, cache,
+                lambda c, p, cc: decode_step(c, p, cc, tok,
+                                             prompt.shape[1])[0])
+    del cache
+    streams_check(torch, eng, ServeEngine(
+        plain_cfg, params, max_len=DENSE_SYNC["max_len"], device="cuda"),
+        reqs, results)
+    return launches
+
+
+def phase_dense_catalog(torch, records):
+    """internlm2-20b, mistral-nemo-12b and yi-34b at full width, each cut
+    to DENSE["n_layers"] layers: phase 2's kernels at its grouping, the
+    paged engine on phase 3's trace, the sync engine on two prompts."""
+    from repro_torch.configs import get_config
+    for i, arch in enumerate(DENSE["archs"]):
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=DENSE["n_layers"])
+        torch.cuda.reset_peak_memory_stats()
+        params = draw_params(
+            torch, cfg, DENSE["seed"] + i,
+            f"{cfg.name} full width (d_model {cfg.d_model}, {cfg.n_heads} "
+            f"query heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}) cut in depth from "
+            f"{full.n_layers} to {cfg.n_layers} layers "
+            f"(dataclasses.replace(cfg, n_layers={DENSE['n_layers']}))")
+        phase_dense_kernels(torch, cfg, params, records)
+        launches, _, _ = phase_serve(torch, cfg, params)
+        records["paged"]["launches_by_phase"][f"16 {arch}"] = \
+            launches["paged_decode_attention"]
+        launches = phase_dense_sync(torch, cfg, params)
+        for key, name in (("flash", "flash_attention"),
+                          ("decode", "decode_attention")):
+            records[key]["launches_by_phase"][f"16 {arch}"] = launches[name]
+        print(f"phase 16 {arch}: {time.perf_counter() - t0:.1f} s, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              " GiB")
+        del params
+        torch.cuda.empty_cache()
+
+
+def phase_mla(torch, records):
+    """deepseek-v2-lite-16b at full width and depth through the sync
+    engine: ``moe_gmm`` at its expert shapes, the run with its launch
+    counts (no attention kernel: MLA), a decode step's logits and routing
+    and the streams by the MoE rules of 9."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config(MLA["arch"])
+    m, e = cfg.mla, cfg.moe
+    D, F = cfg.d_model, e.d_ff_expert
+    # capacities: a B = 1 decode step (4), the B = 8 check step's 8 groups
+    # folded into each expert's rows (32), a 2000-token prefill (236)
+    rec = moe_gmm_record(torch, cfg, cases={
+        "decode gate/up (B = 1)": (4, D, F, True),
+        "decode down (B = 1)": (4, F, D, True),
+        "decode gate/up (B = 8)": (32, D, F, True),
+        "prefill gate/up (S = 2000)": (236, D, F, True),
+        "prefill down (S = 2000)": (236, F, D, True)}, seed=14)
+    records["moe"]["shapes"] += rec["shapes"]
+    records["moe"]["max_abs_err"] = max(records["moe"]["max_abs_err"],
+                                        rec["max_abs_err"])
+    torch.cuda.reset_peak_memory_stats()
+    params = draw_params(
+        torch, cfg, MLA["seed"],
+        f"{cfg.name} full width and depth ({cfg.n_layers} layers: MLA with "
+        f"{cfg.n_heads} heads, latent {m.kv_lora_rank}, query/key heads "
+        f"{m.qk_nope_dim} + {m.qk_rope_dim}, value heads {m.v_head_dim}; "
+        f"{cfg.first_k_dense} dense FFN layer of {cfg.d_ff}, then "
+        f"{cfg.n_layers - cfg.first_k_dense} MoE layers of {e.n_experts} "
+        f"experts top-{e.top_k} of width {F} and {e.n_shared} shared of "
+        f"{e.d_ff_shared} together; d_model {D}, vocab {cfg.vocab_size})")
+    eng = ServeEngine(cfg, params, max_len=MLA_SYNC["max_len"], device="cuda")
+    eng.generate(np.arange(16, dtype=np.int32)[None], n_steps=2)   # warm-up
+    rng = np.random.default_rng(MLA_SYNC["seed"])
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, s)
+                    .astype(np.int32), n_steps=MLA_SYNC["n_steps"])
+            for s in MLA_SYNC["prompts"]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts())
+    check_sync_launches(cfg, launches, len(reqs), stats.decode_steps)
+    for r in results:
+        check(len(r.tokens) == MLA_SYNC["n_steps"], f"{len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              "token out of vocabulary range")
+    n_run = sum(len(r.tokens) for r in results)
+    print(f"ServeEngine {cfg.name} bf16, max_len {MLA_SYNC['max_len']}: "
+          f"run(batch=1) of prompts {list(MLA_SYNC['prompts'])} x "
+          f"{MLA_SYNC['n_steps']} greedy tokens in {wall:.3f} s "
+          f"({n_run / wall:.1f} tok/s); {len(reqs)} prefills, "
+          f"{stats.decode_steps} decode steps, launches {launches}")
+    records["moe"]["launches_by_phase"]["17 " + cfg.name] = launches["moe_gmm"]
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    plain = ServeEngine(plain_cfg, params, max_len=MLA_SYNC["max_len"],
+                        device="cuda")
+    p_results, _ = plain.run(reqs)
+    moe_streams_check(eng, plain, reqs, p_results, results, later=True)
+    del plain
+    batch = rng.integers(0, cfg.vocab_size, MLA_SYNC["check_batch"]
+                         ).astype(np.int32)
+    logits, cache = eng.prefill(batch)
+    del eng
+    tok = logits.argmax(-1)[:, None]
+    pos = batch.shape[1]
+    f32_routing_check(
+        torch, f"{cfg.name} sync decode step (B={batch.shape[0]}, position "
+               f"{pos})", cfg, params, cache, tok,
+        lambda c, p, cc, t: decode_step(c, p, cc, t, pos)[0])
+    print(f"phase 17: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def f32_routing_readings(torch, label, cfg, params, state, tok, step):
+    """One MoE decode step run five ways on identical state, with routing
+    logged: the kernel path, the plain path, and the plain path token by
+    token (cuBLAS's M = 1 kernels: the same function, rounded otherwise)
+    in bf16, then the plain path in float32 with the weights converted
+    in place (``params`` is float32 after: a float32 copy beside the
+    bf16 one does not fit the card).  Prints and returns, for each pair,
+    the (token, layer) pairs whose top-k sets differ and each token's
+    first such layer with the second run's top-k/top-(k+1) margin
+    there, and each bf16 run's logits' relative distance from float32's.
+    ``step(cfg, params, state, tokens)`` returns the logits; ``state``'s
+    leading axis and ``tok``'s rows are the step's tokens."""
+    from repro_torch.serve.parity import routing_differences, routing_log
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    B = tok.shape[0]
+    out, logs = {}, {}
+
+    def run(c, st, t):
+        with routing_log() as log:
+            y = step(c, params, st, t).float()
+        return y, log
+
+    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+        out[name], logs[name] = run(c, _map(lambda t: t.clone(), state), tok)
+    rows, per_row = [], []
+    for b in range(B):
+        y, log = run(plain_cfg, _map(lambda t: t[b:b + 1].clone(), state),
+                     tok[b:b + 1])
+        rows.append(y)
+        per_row.append(log)
+    out["plain B=1"] = torch.cat(rows)
+    logs["plain B=1"] = [torch.cat([t[i] for t in per_row])
+                         for i in range(len(per_row[0]))]
+    check(bool(torch.isfinite(out["kernel"]).all()), "non-finite logits")
+
+    def upcast(tree):
+        for k, v in (tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
+            if isinstance(v, (dict, list)):
+                upcast(v)
+            else:
+                tree[k] = v.float()
+
+    upcast(params)                      # in place: leaf by leaf
+    torch.cuda.empty_cache()
+    out["f32"], logs["f32"] = run(
+        dataclasses.replace(plain_cfg, dtype="float32"),
+        _map(lambda t: t.float(), state), tok)
+    top_k, n_calls = cfg.moe.top_k, len(logs["f32"])
+    pairs = {}
+    for a, ref in (("kernel", "plain"), ("plain B=1", "plain"),
+                   ("kernel", "f32"), ("plain", "f32"),
+                   ("plain B=1", "f32")):
+        first, n = {}, 0
+        for call, diff in routing_differences(top_k, logs[a], logs[ref]):
+            n += len(diff)
+            for r, m in diff:
+                first.setdefault(r, (call, m))
+        pairs[f"{a} vs {ref}"] = {"differing": n, "first": {
+            r: {"layer": l, "margin": m} for r, (l, m) in sorted(first.items())}}
+        margins = [m for _, m in first.values()]
+        print(f"{label}: {a} vs {ref}: {n} of {B * n_calls} (token, layer) "
+              f"pairs route to different top-{top_k} sets; {len(first)} of "
+              f"{B} tokens flip, {sum(m >= ROUTING_MARGIN for m in margins)} "
+              f"first at a {ref} top-{top_k}/top-{top_k + 1} margin >= "
+              f"{ROUTING_MARGIN} (largest first margin "
+              f"{max(margins, default=0.0):.6f})")
+    rel = {name: float((out[name] - out["f32"]).norm() / out["f32"].norm())
+           for name in ("kernel", "plain", "plain B=1")}
+    print(f"{label} logits against float32: kernel path {rel['kernel']:.5f}, "
+          f"plain path {rel['plain']:.5f}, plain path token by token "
+          f"{rel['plain B=1']:.5f}")
+    return {"pairs": pairs, "logits_rel_to_f32": rel}
+
+
+def f32_routing_check(torch, label, cfg, params, state, tok, step):
+    """deepseek's decode step held to float32.  Phase 9's routing rule
+    (a token may route differently from the plain path only first where
+    the plain top-k/top-(k+1) margin is below ``ROUTING_MARGIN``) lies
+    below the plain path's own rounding noise at this depth and router:
+    run token by token, the plain path flips routing against itself at
+    every token, some first at margins above the limit.  So the step is
+    held to float32 (``f32_routing_readings``), as the other phases are:
+    the kernel path's logits no further from float32 than 1.5x the plain
+    path's, and its routing differing from float32's at no more (token,
+    layer) pairs than 1.5x the plain path's.  ``params`` is float32
+    after."""
+    r = f32_routing_readings(torch, label, cfg, params, state, tok, step)
+    rel, pairs = r["logits_rel_to_f32"], r["pairs"]
+    k32, p32 = pairs["kernel vs f32"]["differing"], \
+        pairs["plain vs f32"]["differing"]
+    check(rel["kernel"] <= 1.5 * rel["plain"], f"{label}: the kernel path is "
+          f"further from float32 ({rel['kernel']:.4g}) than 1.5x the plain "
+          f"path ({rel['plain']:.4g})")
+    check(k32 <= 1.5 * p32, f"{label}: the kernel path routes unlike float32 "
+          f"at {k32} (token, layer) pairs, more than 1.5x the plain path's "
+          f"{p32}")
+
+
+class ModelLoop:
+    """The model-level greedy loop, ``prefill`` then ``decode_step`` fed
+    its own argmax, with the model's media or frames (``extras``): how
+    the models whose engines take no media are driven (as the
+    reference's ``tests/test_arch_smoke.py`` drives them).  ``run`` and
+    ``teacher_forced_logits`` speak the engines' protocol, so the
+    near-tie rule of ``repro_torch.serve.parity`` applies."""
+
+    def __init__(self, cfg, params, extras, max_len: int):
+        self.cfg, self.params = cfg, params
+        self.extras, self.max_len = extras, max_len
+
+    def prefill(self, prompt):
+        """(V,) logits of the prompt's last token, and the cache."""
+        import torch
+        from repro_torch.models import prefill
+        toks = torch.tensor(prompt[None], dtype=torch.int32, device="cuda")
+        logits, cache = prefill(self.cfg, self.params,
+                                dict(self.extras, tokens=toks), self.max_len)
+        return logits[0, -1], cache
+
+    def decode(self, cache, tok, pos: int):
+        from repro_torch.models import decode_step
+        return decode_step(self.cfg, self.params, cache, tok.view(1, 1),
+                           pos)[0][0, -1]
+
+    def run(self, reqs):
+        """Each request alone, greedy: (results, stats) as the engines'
+        ``run(batch=1)`` returns them."""
+        import numpy as np
+        import torch
+        from repro_torch.serve import RequestResult, RunStats
+        out = []
+        for r in reqs:
+            logits, cache = self.prefill(r.prompt)
+            S, toks = r.prompt.shape[0], []
+            for i in range(r.n_steps):
+                tok = logits.argmax()
+                toks.append(tok)
+                logits = self.decode(cache, tok, S + i)
+            out.append(RequestResult(
+                tokens=torch.stack(toks).cpu().numpy().astype(np.int32),
+                prompt_len=S, arrival=0, admitted=len(out),
+                finished=len(out), emit_times=[]))
+            del cache
+        steps = sum(r.n_steps for r in reqs)
+        return out, RunStats(requests=len(reqs), tokens=steps,
+                             decode_steps=steps, batches=len(reqs))
+
+    def teacher_forced_logits(self, prompt, tokens):
+        import torch
+        logits, cache = self.prefill(prompt)
+        out, S = [logits], prompt.shape[0]
+        for t, tok in enumerate(list(tokens)[:-1]):
+            out.append(self.decode(cache, torch.tensor(
+                [[tok]], dtype=torch.int32, device="cuda"), S + t))
+        return out
+
+
+def loop_phase(torch, label, cfg, params, extras, run):
+    """Greedy loops of ``run``'s prompts through ``ModelLoop``: launch
+    counts, a decode step's and a prefill's logits against the plain path
+    (with the float32 yardstick) and the streams against the plain
+    path's."""
+    import numpy as np
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve import Request
+    loop = ModelLoop(cfg, params, extras, run["max_len"])
+    loop.run([Request(prompt=np.arange(16, dtype=np.int32), n_steps=2)])
+    rng = np.random.default_rng(run["seed"])
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, s)
+                    .astype(np.int32), n_steps=run["n_steps"])
+            for s in run["prompts"]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results, stats = loop.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts())
+    steps = stats.decode_steps
+    check_sync_launches(cfg, launches, len(reqs), steps)
+    for r in results:
+        check(len(r.tokens) == run["n_steps"], f"{len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()),
+              "token out of vocabulary range")
+    print(f"{label}: prefill + decode_step greedy loops of prompts "
+          f"{list(run['prompts'])} x {run['n_steps']} tokens in {wall:.3f} s "
+          f"({len(reqs) * run['n_steps'] / wall:.1f} tok/s); {len(reqs)} "
+          f"prefills, {steps} decode steps, launches {launches}")
+    plain_cfg = dataclasses.replace(cfg, use_kernels=False)
+    prompt = reqs[1].prompt
+    toks = torch.tensor(prompt[None], dtype=torch.int32, device="cuda")
+    logit_check(torch, f"{label} prefill of {prompt.shape[0]} tokens", cfg,
+                plain_cfg, params, extras,
+                lambda c, p, ex: prefill(c, p, dict(ex, tokens=toks),
+                                         run["max_len"])[0])
+    logits, cache = loop.prefill(prompt)
+    tok = logits.argmax().view(1, 1)
+    logit_check(torch, f"{label} decode step at position {prompt.shape[0]}",
+                cfg, plain_cfg, params, cache,
+                lambda c, p, cc: decode_step(c, p, cc, tok,
+                                             prompt.shape[0])[0])
+    del cache
+    plain = ModelLoop(plain_cfg, params, extras, run["max_len"])
+    streams_check(torch, loop, plain, reqs, results)
+    return launches
+
+
+def phase_vlm(torch, records):
+    """llama-3.2-vision-90b at full width cut to two periods: media from
+    the seed, cross gates from the seed, non-causal flash over the media
+    and decode over every media row checked and timed, then the greedy
+    loops."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import layer_sigs
+    full = get_config(VLM["arch"])
+    cfg = dataclasses.replace(full, n_layers=VLM["n_layers"])
+    M = cfg.cross_attn.n_media_tokens
+    G = cfg.n_heads // cfg.n_kv_heads
+    g = torch.Generator(device="cuda").manual_seed(VLM["seed"] + 100)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    S = VLM_RUN["prompts"][0]
+    q, k, v = (randn(1, S, cfg.n_heads, cfg.hd), randn(1, M, cfg.n_kv_heads,
+                                                       cfg.hd),
+               randn(1, M, cfg.n_kv_heads, cfg.hd))
+    rec = flash_timing(torch, q, k, v, causal=False)
+    print(f"flash_attention non-causal S={S} T={M} (the cross layers' "
+          f"prefill) H={cfg.n_heads} KV={cfg.n_kv_heads} hd={cfg.hd} bf16: "
+          f"max abs err {rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms "
+          f"({rec['flops'] / rec['ms'] / 1e9:.1f} TFLOP/s), plain "
+          f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms (max abs "
+          f"err vs plain {rec['lib_err']:.3g}), bound {rec['bound_ms']:.5f} ms "
+          f"({rec['bound_by']}: {rec['nbytes']} bytes, {rec['flops']} flops); "
+          + readings(rec))
+    records["flash"]["shapes"].append(shape_row(
+        rec, f"{cfg.name} cross prefill: non-causal S={S}, T={M}, G={G}, "
+             f"hd={cfg.hd}"))
+    for B in (1, 8):
+        qd = randn(B, cfg.n_heads, cfg.hd)
+        kd, vd = (randn(B, M, cfg.n_kv_heads, cfg.hd) for _ in range(2))
+        lens = torch.full((B,), M, dtype=torch.int32, device="cuda")
+        rec = decode_timing(torch, qd, kd, vd, lens)
+        print(f"decode_attention B={B} over {M} media rows (the cross "
+              f"layers' decode step) G={G} hd={cfg.hd} bf16: max abs err "
+              f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms (max "
+              f"abs err vs plain {rec['lib_err']:.3g}), bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: {rec['nbytes']} "
+              "bytes); " + readings(rec))
+        records["decode"]["shapes"].append(shape_row(
+            rec, f"{cfg.name} cross decode: B={B} over T={M} media rows, "
+                 f"G={G}, hd={cfg.hd}"))
+        del qd, kd, vd
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = draw_params(
+        torch, cfg, VLM["seed"],
+        f"{cfg.name} full width (d_model {cfg.d_model}, {cfg.n_heads} query "
+        f"heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, a cross layer every "
+        f"{cfg.cross_attn.period} over {M} media rows) cut in depth from "
+        f"{full.n_layers} to {cfg.n_layers} layers "
+        f"(dataclasses.replace(cfg, n_layers={VLM['n_layers']}))")
+    # the reference starts every gate at zero, where no cross-attention
+    # reaches the residual; draw them from the seed
+    cross = [i for i, s in enumerate(layer_sigs(cfg)) if s[0] == "cross"]
+    for i in cross:
+        params["layers"][i]["gate"] = torch.rand(
+            (), generator=g, device="cuda") * 0.5 + 0.25
+    print(f"cross layers {cross}, gates "
+          f"{[round(float(params['layers'][i]['gate']), 4) for i in cross]}"
+          " (uniform in [0.25, 0.75] from the seed)")
+    media = randn(1, M, cfg.d_model) * 1.0
+    launches = loop_phase(torch, cfg.name, cfg, params, {"media": media},
+                          VLM_RUN)
+    for key, name in (("flash", "flash_attention"),
+                      ("decode", "decode_attention")):
+        records[key]["launches_by_phase"]["18 " + cfg.name] = launches[name]
+    print(f"phase 18: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, media
+    torch.cuda.empty_cache()
+
+
+def phase_encoder(torch, records):
+    """whisper-base at full width and depth: non-causal flash over the
+    frames checked and timed, ``_encode`` against the plain path's, then
+    the greedy loops."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import _encode
+    cfg = get_config(ENC["arch"])
+    F = cfg.encoder.n_frames
+    g = torch.Generator(device="cuda").manual_seed(ENC["seed"] + 100)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = (randn(1, F, cfg.n_heads, cfg.hd) for _ in range(3))
+    rec = flash_timing(torch, q, k, v, causal=False)
+    print(f"flash_attention non-causal S=T={F} (the encoder) H={cfg.n_heads} "
+          f"KV={cfg.n_kv_heads} hd={cfg.hd} bf16: max abs err "
+          f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms (max abs "
+          f"err vs plain {rec['lib_err']:.3g}), bound {rec['bound_ms']:.5f} ms "
+          f"({rec['bound_by']}: {rec['nbytes']} bytes, {rec['flops']} flops); "
+          + readings(rec))
+    records["flash"]["shapes"].append(shape_row(
+        rec, f"{cfg.name} encoder: non-causal S=T={F}, G=1, hd={cfg.hd}"))
+    del q, k, v
+    params = draw_params(
+        torch, cfg, ENC["seed"],
+        f"{cfg.name} full width and depth ({cfg.encoder.n_layers} encoder "
+        f"layers over {F} frames, {cfg.n_layers} decoder layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, vocab "
+        f"{cfg.vocab_size}, learned positions, tied embeddings)")
+    frames = randn(1, F, cfg.d_model)
+    enc = {}
+    for name, c in (("kernel", cfg),
+                    ("plain", dataclasses.replace(cfg, use_kernels=False))):
+        enc[name] = _encode(c, params, frames).float()
+    r = float((enc["kernel"] - enc["plain"]).norm() / enc["plain"].norm())
+    print(f"_encode of {F} frames: kernel vs plain path relative error "
+          f"{r:.3g} (limit {LOGIT_REL_TOL})")
+    check(bool(torch.isfinite(enc["kernel"]).all()), "_encode: non-finite")
+    check(r < LOGIT_REL_TOL, f"_encode: kernel vs plain path relative error "
+          f"{r:.3g} >= {LOGIT_REL_TOL}")
+    launches = loop_phase(torch, cfg.name, cfg, params, {"frames": frames},
+                          ENC_RUN)
+    for key, name in (("flash", "flash_attention"),
+                      ("decode", "decode_attention")):
+        records[key]["launches_by_phase"]["19 " + cfg.name] = launches[name]
+    del params, frames
+    torch.cuda.empty_cache()
+
+
 def draw_params(torch, cfg, seed: int, what: str):
     from repro_torch.models import init_params
     t0 = time.perf_counter()
@@ -1745,9 +2373,17 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(label: str) -> None:
+        laps.append(time.perf_counter())
+        print(f"wall time: {label} {laps[-1] - laps[-2]:.1f} s "
+              f"(run so far {laps[-1] - t_start:.1f} s)")
+
     try:
         resolve_device("cuda")
         card = phase_setup(torch)
+        lap("phase 1 (set-up and build)")
         cfg = get_config(SERVE["arch"])
         params = draw_params(torch, cfg, SERVE["seed"],
                              f"{cfg.name} full width, {cfg.n_layers} layers")
@@ -1757,20 +2393,30 @@ def main() -> int:
         flash = flash_records(torch, cfg)
         decode = decode_record(torch, cfg)
         torch.cuda.empty_cache()
+        records = {"paged": paged, "flash": flash, "decode": decode}
+        for key, rec in records.items():
+            rec["shapes"] = [shape_row(rec, f"{cfg.name}: phase 2")]
+            rec["launches_by_phase"] = {}
+        lap("phase 2 (kernel checks)")
         launches, reqs, paged_results = phase_serve(torch, cfg, params)
-        paged["launches"] = launches["paged_decode_attention"]
+        paged["launches_by_phase"]["3 " + cfg.name] = \
+            launches["paged_decode_attention"]
         launches = phase_sync_serve(torch, cfg, params)
-        flash["launches"] = launches["flash_attention"]
-        decode["launches"] = launches["decode_attention"]
+        flash["launches_by_phase"]["4 " + cfg.name] = launches["flash_attention"]
+        decode["launches_by_phase"]["4 " + cfg.name] = \
+            launches["decode_attention"]
         phase_engines(torch, cfg, params, reqs, paged_results)
         phase_profile(torch, cfg, params, serve_trace(cfg.vocab_size))
         phase_sync_profile(torch, cfg, params)
         del params
         torch.cuda.empty_cache()
+        lap("phases 3-6 (qwen2-7b)")
 
         full = get_config(MOE["arch"])
         moe_cfg = dataclasses.replace(full, n_layers=MOE["n_layers"])
         moe = moe_gmm_record(torch, moe_cfg)
+        moe["launches_by_phase"] = {}
+        records["moe"] = moe
         torch.cuda.reset_peak_memory_stats()
         params = draw_params(
             torch, moe_cfg, MOE["seed"],
@@ -1782,15 +2428,16 @@ def main() -> int:
             f"{moe_cfg.n_layers} layers (dataclasses.replace(cfg, "
             f"n_layers={MOE['n_layers']}))")
         launches, routing = phase_moe_serve(torch, moe_cfg, params)
-        moe_launches = launches["moe_gmm"]
+        moe["launches_by_phase"]["8 " + moe_cfg.name] = launches["moe_gmm"]
         launches, routing_sync = phase_moe_sync(torch, moe_cfg, params)
-        moe["launches"] = moe_launches + launches["moe_gmm"]
+        moe["launches_by_phase"]["9 " + moe_cfg.name] = launches["moe_gmm"]
         phase_moe_profile(torch, moe_cfg, params)
         print(f"MoE phases: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; routing "
               f"flips (paged tick, sync step): {routing}, {routing_sync}")
         del params
         torch.cuda.empty_cache()
+        lap("phases 7-10 (qwen3-moe)")
 
         ssd = ssd_record(torch)
         ssm_cfg = get_config(SSM["arch"])
@@ -1806,6 +2453,7 @@ def main() -> int:
         phase_ssm_profile(torch, ssm_cfg, params)
         del params
         torch.cuda.empty_cache()
+        lap("phases 11-13 (mamba2)")
 
         full = get_config(HYBRID["arch"])
         hyb_cfg = dataclasses.replace(full, n_layers=HYBRID["n_layers"])
@@ -1828,10 +2476,25 @@ def main() -> int:
               f"flips (sync step): {routing_hyb}")
         del params
         torch.cuda.empty_cache()
+        lap("phase 14 (jamba)")
 
         gemm, gemm_rows = gemm_records(torch)
         gemm["launches"] = phase_mfma_contract(torch)
         print(f"mfma_gemm timed shapes: {json.dumps(gemm_rows)}")
+        lap("phase 15 (the MFMA contract)")
+
+        phase_dense_catalog(torch, records)
+        lap("phase 16 (the dense catalog)")
+        phase_mla(torch, records)
+        lap("phase 17 (deepseek-v2-lite-16b)")
+        phase_vlm(torch, records)
+        lap("phase 18 (llama-3.2-vision-90b)")
+        phase_encoder(torch, records)
+        lap("phase 19 (whisper-base)")
+        for rec in records.values():
+            rec["launches"] = sum(rec["launches_by_phase"].values())
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                r["max_abs_err"] for r in rec["shapes"]])
         check(not DEFERRED, "; ".join(DEFERRED))
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

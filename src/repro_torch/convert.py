@@ -11,9 +11,12 @@ rest as a tuple of per-slot stacks ``layers``, each leaf with a leading
 global order.  The reference's decode cache (``repro.models.init_cache``
 and ``prefill``) has the same ``layers0`` / stacked ``layers`` layout;
 the port's is a list with one dict per layer: ``{"k", "v"}`` for an
-attention layer, ``{"conv", "state"}`` for an SSM layer (a hybrid such
-as jamba stacks both kinds, one per slot of its period).  bfloat16
-leaves (numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.
+attention layer, ``{"ckv", "krope"}`` for MLA, ``{"conv", "state"}`` for
+an SSM layer, ``{"ck", "cv"}`` for a cross layer (a hybrid such as jamba
+stacks several kinds, one per slot of its period).  An encoder's layers
+(``encoder["layers"]``, one slot stacked ``n_layers`` deep) become a
+list of their own.  bfloat16 leaves (numpy's ``ml_dtypes`` bfloat16) are
+carried bit for bit.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ __all__ = ["to_tensor", "convert_params", "convert_cache"]
 def to_tensor(a, device: Union[str, torch.device]) -> torch.Tensor:
     """One numpy leaf as a tensor on ``device`` (bf16 kept bit-exact)."""
     a = np.asarray(a)
+    # reshape: ascontiguousarray gives a 0-d leaf (a cross gate) one axis
+    c = np.ascontiguousarray(a).reshape(a.shape)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = torch.from_numpy(c.view(np.uint16).copy())
         return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(c.copy()).to(device)
 
 
 def _tree(x, fn):
@@ -51,8 +56,13 @@ def convert_params(np_params: Dict, *,
     dev = resolve_device(device)
     out: Dict = {k: _tree(v, lambda a: to_tensor(a, dev))
                  for k, v in np_params.items()
-                 if k not in ("layers0", "layers")}
+                 if k not in ("layers0", "layers", "encoder")}
     out["layers"] = _unstack(np_params, dev)
+    if "encoder" in np_params:
+        enc = np_params["encoder"]
+        out["encoder"] = {k: _tree(v, lambda a: to_tensor(a, dev))
+                          for k, v in enc.items() if k != "layers"}
+        out["encoder"]["layers"] = _unstack({"layers": enc["layers"]}, dev)
     return out
 
 
@@ -62,8 +72,10 @@ def convert_cache(np_cache: Dict, *,
     """The port's per-layer decode cache from the reference's numpy one,
     ``{"layers0": [...], "layers": (per-slot stacks,)}`` whose stacked
     leaves carry a leading n_periods axis: (n_periods, B, T, KV, hd) K/V
-    of an attention slot, (n_periods, B, d_conv - 1, conv_dim) conv
-    windows and (n_periods, B, nh, hd, ds) states of an SSM slot."""
+    of an attention slot, (n_periods, B, T, r) latents and RoPE keys of
+    an MLA slot, (n_periods, B, d_conv - 1, conv_dim) conv windows and
+    (n_periods, B, nh, hd, ds) states of an SSM slot, (n_periods, B, M,
+    KV, hd) media K/V of a cross slot."""
     return _unstack(np_cache, resolve_device(device))
 
 

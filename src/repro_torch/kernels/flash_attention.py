@@ -49,6 +49,8 @@ TILE = 64                       # key rows per step of the CUDA kernel (kBKV)
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 128)
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -126,13 +128,11 @@ def _kernel(q, k, v, causal: bool, kv_len: int) -> torch.Tensor:
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        build.launch(NAME, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     B, S, T, H, KV, hd, kv_len, int(causal),
-                     1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype],
-                     torch.cuda.current_stream(q.device).cuda_stream)
+    build.launch(NAME, _ARGS, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), B, S, T, H, KV, hd, kv_len, int(causal),
+                 1.0 / math.sqrt(hd), _DTYPE_CODES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream,
+                 device=q.device)
     LAUNCHES[NAME] += 1
     return out
 

@@ -1,32 +1,42 @@
-"""GQA self-attention (twin of the GQA half of ``repro.models.attention``).
+"""Attention mixers: GQA self-attention, MLA (DeepSeek-V2) and
+cross-attention (twin of ``repro.models.attention``).
 
 Ported: ``init_attn``, ``_qkv``, the attention math (:func:`sdpa`,
 :func:`_flash_sdpa`, :func:`_causal_split_flash` and the
 :func:`attention` entry point with its kernel dispatch), the
 contiguous-cache layer steps the sync serve engine runs
-(:func:`attn_train`, :func:`init_attn_cache`, :func:`attn_decode`), and
-the two paged layer steps the paged engine runs,
-:func:`attn_decode_paged` (one token per request) and
-:func:`attn_prefill_paged` (one prompt chunk).  MLA and cross-attention
-are later slices (ROADMAP queue 1).
+(:func:`attn_train`, :func:`init_attn_cache`, :func:`attn_decode`), the
+two paged layer steps the paged engine runs, :func:`attn_decode_paged`
+(one token per request) and :func:`attn_prefill_paged` (one prompt
+chunk), Multi-head Latent Attention (:func:`init_mla`,
+:func:`mla_train`, :func:`init_mla_cache`, :func:`mla_decode`: the cache
+holds the compressed latent and the decoupled RoPE key, up-projected at
+every use) and cross-attention over media or encoder embeddings
+(:func:`init_cross`, :func:`cross_kv`, :func:`cross_train`,
+:func:`cross_decode`).
 
 Caches are written in place: :func:`attn_decode` writes the new row into
-the (B, max_len, KV, hd) cache tensors it is given, and the paged steps
-index-write their rows into the ``(P, page, KV, hd)`` pools.  The
-reference returns updated caches and its engines donate the old ones so
-XLA can reuse their buffers; the result is the same.
+the (B, max_len, KV, hd) cache tensors it is given, :func:`mla_decode`
+its latent and RoPE-key rows, and the paged steps index-write their rows
+into the ``(P, page, KV, hd)`` pools.  The reference returns updated
+caches and its engines donate the old ones so XLA can reuse their
+buffers; the result is the same.
 
 With ``cfg.use_kernels`` :func:`attention` calls the port's kernels
 (the CUDA kernel on CUDA tensors, its plain version on CPU tensors):
 :func:`repro_torch.kernels.flash_attention` when S > 1 and
-:func:`repro_torch.kernels.decode_attention` for the single-token step.
-There is no fallback: what the kernels cannot take (a value head dim
-other than the query's, as in MLA, or a softmax scale other than
-1/sqrt(hd)) raises ``NotImplementedError``.  Otherwise it runs the
-reference's ``use_pallas=False`` path: :func:`sdpa` below 2048 keys, the
-blockwise :func:`_flash_sdpa` from 2048 keys on (S > 1).  The paged
-decode step calls :func:`repro_torch.kernels.paged_decode_attention`
-with ``cfg.use_kernels``, else gathers each request's pages into a dense
+:func:`repro_torch.kernels.decode_attention` for the single-token step,
+causal or not (cross-attention attends every media row).  There is no
+fallback: what the kernels cannot take (a value head dim other than the
+query's, or a softmax scale other than 1/sqrt(hd)) raises
+``NotImplementedError``.  MLA never asks: its value head differs from its
+query head, so the reference's dispatch always gave it the plain path,
+and :func:`_mla_attend` calls that path itself.  Otherwise
+:func:`attention` runs the reference's ``use_pallas=False`` path:
+:func:`sdpa` below 2048 keys, the blockwise :func:`_flash_sdpa` from 2048
+keys on (S > 1).  The paged decode step calls
+:func:`repro_torch.kernels.paged_decode_attention` with
+``cfg.use_kernels``, else gathers each request's pages into a dense
 cache and runs :func:`sdpa`; paged prefill always gathers and runs
 :func:`sdpa`, as the reference does.
 """
@@ -41,16 +51,16 @@ import torch
 from repro_torch.kernels import (decode_attention, flash_attention,
                                  paged_decode_attention)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import cdtype, dense, mm, rope
+from repro_torch.models.layers import cdtype, dense, mm, norm_apply, rope
 
 __all__ = ["init_attn", "attn_train", "attn_decode", "attn_decode_paged",
-           "attn_prefill_paged", "init_attn_cache", "sdpa", "attention"]
+           "attn_prefill_paged", "init_mla", "mla_train", "mla_decode",
+           "init_cross", "cross_kv", "cross_train", "cross_decode",
+           "init_attn_cache", "init_mla_cache", "sdpa", "attention"]
 
 _FLASH_BLOCK = 512
 _FLASH_MIN_T = 2048     # plain sdpa below this KV length
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
-# the slice of ROADMAP queue 1 that ports what the kernels cannot take
-_MLA_SLICE = "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)"
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -149,11 +159,12 @@ def _attention_kernel(q, k, v, *, causal: bool, scale: float,
     if v.shape[-1] != hd:
         raise NotImplementedError(
             f"{kernel}: value head dim {v.shape[-1]} != query head dim {hd} "
-            f"(MLA-style asymmetric heads) has no kernel yet: {_MLA_SLICE}")
+            "(MLA-style asymmetric heads) has no kernel; the reference's "
+            "dispatch runs such heads on its plain path")
     if abs(scale * math.sqrt(hd) - 1.0) > 1e-6:
         raise NotImplementedError(
-            f"{kernel}: softmax scale {scale:g} != 1/sqrt(hd) has no kernel "
-            f"yet: {_MLA_SLICE}")
+            f"{kernel}: softmax scale {scale:g} != 1/sqrt(hd) has no kernel; "
+            "the reference's dispatch runs it on its plain path")
     if S > 1:
         return flash_attention(q, k, v, causal=causal, kv_len=kv_len)
     kl = k.shape[1] if kv_len is None else kv_len
@@ -358,3 +369,147 @@ def attn_prefill_paged(cfg: ModelConfig, w, x: torch.Tensor, cache: Dict,
                q_offset=lens)
     y = dense(out.reshape(B, C, cfg.n_heads * hd), w["wo"])
     return y, cache
+
+
+# -- MLA: Multi-head Latent Attention (DeepSeek-V2) ---------------------------
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator,
+             device: torch.device) -> Dict:
+    """The query projection, the down-projection to the latent and the
+    decoupled RoPE key, the latent's up-projections to the keys' no-RoPE
+    part and the values, the output projection and the latent's norm;
+    the reference's initialisation scales."""
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    dt = cdtype(cfg)
+    s = 1.0 / math.sqrt(D)
+    sl = 1.0 / math.sqrt(m.kv_lora_rank)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=device) * std).to(dt)
+
+    return {"wq": normal((D, H * qk), s),
+            "w_dkv": normal((D, m.kv_lora_rank + m.qk_rope_dim), s),
+            "w_uk": normal((m.kv_lora_rank, H * m.qk_nope_dim), sl),
+            "w_uv": normal((m.kv_lora_rank, H * m.v_head_dim), sl),
+            "wo": normal((H * m.v_head_dim, D),
+                         s / math.sqrt(max(1, cfg.n_layers))),
+            "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dt,
+                                  device=device)}
+
+
+def _mla_latent(cfg: ModelConfig, w, x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> the normed latent c_kv (B, S, kv_lora_rank) and the
+    decoupled key k_rope (B, S, qk_rope_dim), rotated at ``positions``:
+    what the cache holds."""
+    r = cfg.mla.kv_lora_rank
+    dkv = dense(x, w["w_dkv"])
+    c_kv = norm_apply(cfg, w["kv_norm"], dkv[..., :r])
+    k_rope = rope(dkv[..., r:][:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_attend(cfg: ModelConfig, w, x: torch.Tensor, c_kv: torch.Tensor,
+                k_rope: torch.Tensor, positions: torch.Tensor, *,
+                causal: bool, kv_len=None) -> torch.Tensor:
+    """Queries of x (B, S, D) against keys and values up-projected from
+    the latent c_kv (B, T, r), the one RoPE key shared by every head.
+
+    Attention runs the plain path whatever ``cfg.use_kernels`` says: the
+    query/key head (qk_nope + qk_rope) and the value head differ, and the
+    reference's kernel dispatch (``repro.models.attention``, lines
+    195-199 of ``_attention_kernel``) sends such heads to its plain path,
+    so no TPU kernel ever computed MLA's attention."""
+    m = cfg.mla
+    B, S = x.shape[:2]
+    T, H = c_kv.shape[1], cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    q = dense(x, w["wq"]).reshape(B, S, H, qk)
+    q_rope = rope(q[..., m.qk_nope_dim:], positions, cfg.rope_theta)
+    k_nope = dense(c_kv, w["w_uk"]).reshape(B, T, H, m.qk_nope_dim)
+    v = dense(c_kv, w["w_uv"]).reshape(B, T, H, m.v_head_dim)
+    q_full = torch.cat([q[..., :m.qk_nope_dim], q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, T, H, m.qk_rope_dim)], dim=-1)
+    out = attention(q_full, k_full, v, causal=causal,
+                    scale=1.0 / math.sqrt(qk), kv_len=kv_len,
+                    use_kernels=False)
+    return dense(out.reshape(B, S, H * m.v_head_dim), w["wo"])
+
+
+def mla_train(cfg: ModelConfig, w, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal MLA: x (B, S, D) at ``positions``."""
+    c_kv, k_rope = _mla_latent(cfg, w, x, positions)
+    return _mla_attend(cfg, w, x, c_kv, k_rope, positions, causal=True)
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+                   device: Union[str, torch.device]) -> Dict:
+    """Zeroed latent (batch, max_len, kv_lora_rank) and RoPE-key
+    (batch, max_len, qk_rope_dim) caches in ``cfg.dtype``."""
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                               dtype=cdtype(cfg), device=device),
+            "krope": torch.zeros((batch, max_len, m.qk_rope_dim),
+                                 dtype=cdtype(cfg), device=device)}
+
+
+def mla_decode(cfg: ModelConfig, w, x: torch.Tensor, cache: Dict,
+               pos: int) -> Tuple[torch.Tensor, Dict]:
+    """One MLA decode step: x (B, 1, D) at position ``pos``.  Its latent
+    and RoPE-key rows are written into ``cache`` in place; attention then
+    reads rows [0, pos + 1)."""
+    S = x.shape[1]
+    pos = int(pos)
+    positions = torch.full((S,), pos, dtype=torch.int32, device=x.device)
+    c_new, kr_new = _mla_latent(cfg, w, x, positions)
+    cache["ckv"][:, pos:pos + S] = c_new
+    cache["krope"][:, pos:pos + S] = kr_new
+    y = _mla_attend(cfg, w, x, cache["ckv"], cache["krope"], positions,
+                    causal=False, kv_len=pos + 1)
+    return y, cache
+
+
+# -- cross-attention over media or encoder embeddings -------------------------
+
+init_cross = init_attn  # the same weights; biases, if any, are not used
+
+
+def cross_kv(cfg: ModelConfig, w, media: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K/V (B, M, KV, hd) of media or encoder embeddings (B, M, D)."""
+    B, M, _ = media.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    return (dense(media, w["wk"]).reshape(B, M, KV, hd),
+            dense(media, w["wv"]).reshape(B, M, KV, hd))
+
+
+def cross_train(cfg: ModelConfig, w, x: torch.Tensor,
+                media: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) attends every row of ``media`` (B, M, D), no mask and
+    no RoPE: ``flash_attention(causal=False)`` with T = M under
+    ``cfg.use_kernels``."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = dense(x, w["wq"]).reshape(B, S, H, hd)
+    k, v = cross_kv(cfg, w, media)
+    out = attention(q, k, v, causal=False, use_kernels=cfg.use_kernels)
+    return dense(out.reshape(B, S, H * hd), w["wo"])
+
+
+def cross_decode(cfg: ModelConfig, w, x: torch.Tensor,
+                 kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """One decode step's cross-attention against the media K/V the
+    prefill cached: ``decode_attention`` over all M rows under
+    ``cfg.use_kernels``."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = dense(x, w["wq"]).reshape(B, S, H, hd)
+    out = attention(q, kv[0], kv[1], causal=False,
+                    use_kernels=cfg.use_kernels)
+    return dense(out.reshape(B, S, H * hd), w["wo"])

@@ -1,16 +1,21 @@
 """Decoder blocks and layer schedules (twin of ``repro.models.blocks``).
 
 A layer signature ``(mixer, is_moe)`` classifies every layer, as in the
-reference.  Every block is pre-norm with residuals:
+reference: ``mixer`` is ``"attn"`` (GQA self-attention, or MLA when the
+config has ``mla``), ``"ssm"`` (Mamba-2, :mod:`repro_torch.models.ssm`),
+``"cross"`` (gated cross-attention over media embeddings, the VLM's
+every ``cross_attn.period``-th layer), ``"attn_cross"`` (self-attention
+then a cross-attention sub-block; no catalog config's schedule yields
+it, as in the reference) or ``"enc_attn"`` (the encoder's non-causal
+self-attention).  Every block is pre-norm with residuals:
 ``h += mixer(norm(h)); h += ffn(norm(h))``, the FFN a dense MLP or, for
 an MoE signature, :func:`repro_torch.models.moe.moe_apply`; a block
-without FFN (mamba2, ``d_ff = 0``) is the mixer alone.  Two mixers are
-ported: plain GQA attention and the Mamba-2 SSM
-(:mod:`repro_torch.models.ssm`), each in the reference's three modes
-(:func:`apply_layer`: train, prefill, decode against the sync engine's
-cache), so hybrid schedules such as jamba's mix them layer by layer.
-Only attention layers page (the two paged steps); other layer kinds
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+without FFN (mamba2, ``d_ff = 0``) is the mixer alone.  A cross layer
+scales its mixer's output by ``tanh(gate)`` in f32, the gate a learned
+scalar initialised to zero.  :func:`apply_layer` runs the reference's
+three modes (train, prefill, decode against the sync engine's cache).
+Only plain GQA attention layers page (the two paged steps); other layer
+kinds raise ``NotImplementedError``, as the reference's do.
 """
 
 from __future__ import annotations
@@ -31,14 +36,6 @@ __all__ = ["Sig", "layer_sigs", "schedule", "init_norm", "init_mlp",
            "apply_layer_paged", "apply_layer_prefill_paged"]
 
 Sig = Tuple[str, bool]
-
-_NOT_PORTED = {
-    "cross": "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)",
-    "attn_cross": "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)",
-    "enc_attn": "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)",
-    "mla": "ROADMAP queue 1 item 3 (MLA, cross-attention and encoder)",
-}
-
 
 def layer_sigs(cfg: ModelConfig) -> List[Sig]:
     sigs: List[Sig] = []
@@ -62,17 +59,6 @@ def schedule(cfg: ModelConfig) -> Tuple[int, int, int]:
         if n % p == 0 and all(sigs[i] == sigs[i % p] for i in range(n)):
             return first_k, p, n // p
     return first_k, n, 1
-
-
-def check_ported(cfg: ModelConfig, sig: Sig) -> None:
-    """Raise ``NotImplementedError`` for a mixer not ported yet (either
-    FFN, dense or MoE, is ported)."""
-    mixer, _ = sig
-    kind = "mla" if cfg.mla and mixer == "attn" else mixer
-    if kind not in ("attn", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind {kind!r} is not ported to repro_torch "
-            f"yet: {_NOT_PORTED.get(kind, 'not on the ROADMAP')}")
 
 
 def init_norm(cfg: ModelConfig, device: torch.device,
@@ -105,11 +91,23 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator,
 
 def init_layer(cfg: ModelConfig, gen: torch.Generator, sig: Sig,
                device: torch.device) -> Dict:
-    check_ported(cfg, sig)
-    mixer = ssm_mod.init_ssm(cfg, gen, device) if sig[0] == "ssm" \
-        else attn.init_attn(cfg, gen, device)
-    w: Dict = {"ln1": init_norm(cfg, device), "mixer": mixer}
-    if sig[1]:
+    mixer, is_moe = sig
+    w: Dict = {"ln1": init_norm(cfg, device)}
+    if mixer in ("attn", "enc_attn"):
+        w["mixer"] = attn.init_mla(cfg, gen, device) \
+            if cfg.mla and mixer == "attn" else attn.init_attn(cfg, gen, device)
+    elif mixer == "ssm":
+        w["mixer"] = ssm_mod.init_ssm(cfg, gen, device)
+    elif mixer == "cross":
+        w["mixer"] = attn.init_cross(cfg, gen, device)
+        w["gate"] = torch.zeros((), dtype=torch.float32, device=device)
+    elif mixer == "attn_cross":
+        w["mixer"] = attn.init_attn(cfg, gen, device)
+        w["lnx"] = init_norm(cfg, device)
+        w["cross"] = attn.init_cross(cfg, gen, device)
+    else:
+        raise ValueError(f"unknown mixer {mixer!r}")
+    if is_moe:
         w["ln2"] = init_norm(cfg, device)
         w["ffn"] = init_moe(cfg, gen, device)
     elif cfg.d_ff > 0:
@@ -119,12 +117,25 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, sig: Sig,
 
 
 def init_layer_cache(cfg: ModelConfig, sig: Sig, batch: int, max_len: int,
-                     *, device: Union[str, torch.device]) -> Dict:
+                     media_len: int = 0, *,
+                     device: Union[str, torch.device]) -> Dict:
     """Zeroed decode cache of one layer: (batch, max_len, KV, hd) K/V for
-    attention, the conv window and f32 state for an SSM layer."""
-    check_ported(cfg, sig)
-    if sig[0] == "ssm":
+    attention, the latent and RoPE key for MLA, the conv window and f32
+    state for an SSM layer, (batch, media_len, KV, hd) media K/V
+    (``ck``, ``cv``) for a cross layer (beside the self-attention K/V for
+    ``attn_cross``)."""
+    mixer = sig[0]
+    if mixer == "ssm":
         return ssm_mod.init_ssm_cache(cfg, batch, device=device)
+    if mixer in ("cross", "attn_cross"):
+        c = {} if mixer == "cross" else \
+            attn.init_attn_cache(cfg, batch, max_len, device=device)
+        shp = (batch, media_len, cfg.n_kv_heads, cfg.hd)
+        c["ck"] = torch.zeros(shp, dtype=cdtype(cfg), device=device)
+        c["cv"] = torch.zeros(shp, dtype=cdtype(cfg), device=device)
+        return c
+    if cfg.mla:
+        return attn.init_mla_cache(cfg, batch, max_len, device=device)
     return attn.init_attn_cache(cfg, batch, max_len, device=device)
 
 
@@ -140,8 +151,13 @@ def _pad_cache(x: torch.Tensor, max_len: int) -> torch.Tensor:
 
 def _attn_prefill_cache(cfg: ModelConfig, w, x: torch.Tensor,
                         positions: torch.Tensor, max_len: int) -> Dict:
-    """Recompute the prompt's K/V (as the reference does: cheap next to
-    attention itself) and pad them to cache length."""
+    """Recompute the prompt's K/V, or MLA's latent and RoPE key (as the
+    reference does: cheap next to attention itself) and pad them to cache
+    length."""
+    if cfg.mla:
+        c_kv, k_rope = attn._mla_latent(cfg, w, x, positions)
+        return {"ckv": _pad_cache(c_kv, max_len),
+                "krope": _pad_cache(k_rope, max_len)}
     _, k, v = attn._qkv(cfg, w, x, positions)
     return {"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len)}
 
@@ -176,6 +192,7 @@ def _ffn(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor
 
 def apply_layer(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor, *,
                 mode: str, positions: Optional[torch.Tensor] = None,
+                media: Optional[torch.Tensor] = None,
                 cache: Optional[Dict] = None, pos: Optional[int] = None,
                 max_len: int = 0):
     """One layer in the reference's modes:
@@ -184,31 +201,69 @@ def apply_layer(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor, *,
     * ``"prefill"``: returns (h, aux, cache), the cache padded to
       ``max_len``;
     * ``"decode"``: returns (h, cache), h (B, 1, D); the cache is
-      updated in place (attention writes its new row at ``pos``, an SSM
-      layer its conv window and state).
+      updated in place (attention writes its new row at ``pos``, MLA its
+      latent and RoPE-key rows, an SSM layer its conv window and state;
+      a cross layer reads the media K/V its prefill cached).
 
-    An SSM layer's prefill cache is not padded: its conv window and
-    state do not grow with the sequence.  ``aux`` is the MoE balance
-    loss of an MoE layer, a zero f32 scalar otherwise."""
-    check_ported(cfg, sig)
+    ``media`` (B, M, D) is what a cross layer attends in train and
+    prefill; its prefill cache is ``cross_kv(media)``, not padded.  An
+    SSM layer's prefill cache is not padded either: its conv window and
+    state do not grow with the sequence.  An ``"enc_attn"`` layer (the
+    encoder's) runs non-causal self-attention in every mode and caches
+    nothing.  ``aux`` is the MoE balance loss of an MoE layer, a zero f32
+    scalar otherwise."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"apply_layer: unknown mode {mode!r}")
+    mixer = sig[0]
     x = norm_apply(cfg, w["ln1"], h)
     new_cache: Dict = {}
-    if sig[0] == "ssm":
+    if mixer == "enc_attn":
+        y = attn.attn_train(cfg, w["mixer"], x, positions, causal=False)
+    elif mixer == "attn":
+        if mode == "decode":
+            step = attn.mla_decode if cfg.mla else attn.attn_decode
+            y, new_cache = step(cfg, w["mixer"], x, cache, pos)
+        else:
+            train = attn.mla_train if cfg.mla else attn.attn_train
+            y = train(cfg, w["mixer"], x, positions)
+            if mode == "prefill":
+                new_cache = _attn_prefill_cache(cfg, w["mixer"], x, positions,
+                                                max_len)
+    elif mixer == "ssm":
         if mode == "decode":
             y, new_cache = ssm_mod.ssm_decode(cfg, w["mixer"], x, cache, pos)
         else:
             y = ssm_mod.ssm_train(cfg, w["mixer"], x)
             if mode == "prefill":
                 new_cache = _ssm_prefill_cache(cfg, w["mixer"], x)
-    elif mode == "decode":
-        y, new_cache = attn.attn_decode(cfg, w["mixer"], x, cache, pos)
+    elif mixer == "cross":
+        if mode == "decode":
+            y = attn.cross_decode(cfg, w["mixer"], x, (cache["ck"],
+                                                       cache["cv"]))
+            new_cache = cache
+        else:
+            y = attn.cross_train(cfg, w["mixer"], x, media)
+            if mode == "prefill":
+                ck, cv = attn.cross_kv(cfg, w["mixer"], media)
+                new_cache = {"ck": ck, "cv": cv}
+        y = (torch.tanh(w["gate"]) * y.float()).to(y.dtype)
+    elif mixer == "attn_cross":
+        if mode == "decode":
+            y, new_cache = attn.attn_decode(cfg, w["mixer"], x, cache, pos)
+            xc = norm_apply(cfg, w["lnx"], h + y)
+            y = y + attn.cross_decode(cfg, w["cross"], xc,
+                                      (cache["ck"], cache["cv"]))
+        else:
+            y = attn.attn_train(cfg, w["mixer"], x, positions)
+            if mode == "prefill":
+                new_cache = _attn_prefill_cache(cfg, w["mixer"], x, positions,
+                                                max_len)
+                new_cache["ck"], new_cache["cv"] = attn.cross_kv(
+                    cfg, w["cross"], media)
+            xc = norm_apply(cfg, w["lnx"], h + y)
+            y = y + attn.cross_train(cfg, w["cross"], xc, media)
     else:
-        y = attn.attn_train(cfg, w["mixer"], x, positions)
-        if mode == "prefill":
-            new_cache = _attn_prefill_cache(cfg, w["mixer"], x, positions,
-                                            max_len)
+        raise ValueError(f"unknown mixer {mixer!r}")
     h, aux = _ffn(cfg, sig, w, h + y)
     if mode == "decode":
         return h, new_cache
@@ -217,12 +272,13 @@ def apply_layer(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor, *,
 
 def _check_pages(cfg: ModelConfig, sig: Sig, where: str) -> None:
     """Only plain GQA attention layers page: an SSM layer's state is O(1)
-    and needs no pages (``PagedKVCache`` rejects such configs up front)."""
-    check_ported(cfg, sig)
-    if sig[0] != "attn":
+    and needs no pages, and MLA and cross layers cache other leaves
+    (``PagedKVCache`` rejects such configs up front)."""
+    if sig[0] != "attn" or cfg.mla:
         raise NotImplementedError(
             f"{where}: only plain GQA attention layers page (got mixer "
-            f"{sig[0]!r}); serve {cfg.name} with the sync ServeEngine")
+            f"{sig[0]!r}, mla={bool(cfg.mla)}); serve {cfg.name} with the "
+            "sync ServeEngine")
 
 
 def apply_layer_paged(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor,

@@ -9,9 +9,9 @@ the MoE expert products run the hand-written CUDA kernels on CUDA
 tensors and their plain PyTorch versions on CPU tensors;
 ``use_kernels=False`` asks for the reference's plain path instead.
 
-Fields the serving path does not read yet (MLA, SSM, cross attention,
-encoder, the training knobs) are kept so later slices port their layers
-against an unchanged config.
+Fields the serving path does not read (the training knobs: remat,
+scan_layers, microbatches, grad_accum_dtype) are kept so the training
+slice ports against an unchanged config.
 """
 
 from __future__ import annotations

@@ -1,30 +1,41 @@
 """Top-level LM assembly (twin of ``repro.models.model``).
 
 Parameters are a plain dict: ``embed`` (V, D), ``final_norm``,
-``unembed`` (D, V) unless embeddings are tied, and ``layers``, a list
-with one weight dict per layer in global order.  The reference scans
-over stacked per-period weights; here the scan is a Python loop over
-that list (:mod:`repro_torch.convert` unstacks the reference's layout).
+``unembed`` (D, V) unless embeddings are tied, ``pos_embed``
+(:data:`LEARNED_POS_LEN`, D) for learned positions, ``layers``, a list
+with one weight dict per layer in global order, and for an
+encoder-decoder ``encoder = {"pos", "layers", "norm"}`` (its own list of
+``"enc_attn"`` layers).  The reference scans over stacked per-period
+weights; here the scan is a Python loop over those lists
+(:mod:`repro_torch.convert` unstacks the reference's layout).
 
 The layers follow the config's schedule of mixers (``layer_sigs``):
-attention, SSM or, for a hybrid such as jamba, both, each with a dense
-or MoE FFN or none.  Two cache layouts, both written in place by the
-steps below:
+attention (GQA or MLA), SSM, gated cross-attention, or a hybrid of
+them, each with a dense or MoE FFN or none.  Two cache layouts, both
+written in place by the steps below:
 
 * the decode cache of the sync serve engine, a list with one dict per
   layer: ``{"k", "v"}`` of (B, max_len, KV, hd) tensors for an
-  attention layer, ``{"conv", "state"}`` for an SSM layer, the last
-  d_conv - 1 conv inputs (B, d_conv - 1, conv_dim) and the f32 state
-  (B, nh, hd, ds), which do not grow with the sequence
-  (:func:`init_cache`, :func:`prefill`, :func:`decode_step`);
+  attention layer, ``{"ckv", "krope"}`` (B, max_len, kv_lora_rank) and
+  (B, max_len, qk_rope_dim) for MLA, ``{"conv", "state"}`` for an SSM
+  layer, the last d_conv - 1 conv inputs (B, d_conv - 1, conv_dim) and
+  the f32 state (B, nh, hd, ds), which do not grow with the sequence,
+  and ``{"ck", "cv"}`` (B, media_len, KV, hd) for a cross layer, the
+  media's K/V written by the prefill (:func:`init_cache`,
+  :func:`prefill`, :func:`decode_step`);
 * the paged pools, ``{"k", "v"}`` tensors of shape (L, P, page, KV, hd),
   one (P, page, KV, hd) pool per layer (:func:`paged_decode_step`,
   :func:`paged_prefill_step`; build them with
-  :class:`repro_torch.serve.PagedKVCache`).  Only attention layers
-  page: models with SSM layers are served by the sync engine.
+  :class:`repro_torch.serve.PagedKVCache`).  Only plain GQA attention
+  layers with RoPE page: other models are served by the sync engine or
+  through :func:`prefill` and :func:`decode_step`.
 
-:func:`forward` runs the ``train`` and ``prefill`` modes; the loss and
-the backward pass are the training slice (ROADMAP queue 1 item 4).
+:func:`forward` runs the ``train`` and ``prefill`` modes, taking
+``batch["media"]`` (B, M, D) for a cross-attention model and
+``batch["frames"]`` (B, F, D) for an encoder-decoder, whose encoder
+(:func:`_encode`) runs first and becomes the decoder's media, as in the
+reference.  The loss and the backward pass are the training slice
+(ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -44,7 +55,10 @@ from repro_torch.models.layers import (cdtype, embed_apply, norm_apply,
                                        unembed_apply)
 
 __all__ = ["init_params", "forward", "init_cache", "decode_step", "prefill",
-           "paged_decode_step", "paged_prefill_step"]
+           "paged_decode_step", "paged_prefill_step", "LEARNED_POS_LEN"]
+
+LEARNED_POS_LEN = 32768  # rows of the learned-position table, as the reference
+ENC_SIG = ("enc_attn", False)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -66,9 +80,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                "final_norm": init_norm(cfg, dev)}
     if not cfg.tie_embeddings:
         p["unembed"] = normal((cfg.d_model, cfg.vocab_size))
+    if cfg.pos_embed == "learned":
+        p["pos_embed"] = (torch.randn((LEARNED_POS_LEN, cfg.d_model),
+                                      generator=generator, device=dev)
+                          * 0.01).to(dt)
     p["layers"] = [init_layer(cfg, generator, sig, dev)
                    for sig in layer_sigs(cfg)]
+    if cfg.encoder:
+        e = cfg.encoder
+        p["encoder"] = {
+            "pos": (torch.randn((e.n_frames, cfg.d_model), generator=generator,
+                                device=dev) * 0.01).to(dt),
+            "layers": [init_layer(cfg, generator, ENC_SIG, dev)
+                       for _ in range(e.n_layers)],
+            "norm": init_norm(cfg, dev)}
     return p
+
+
+def _encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over frame embeddings (B, F, D): learned positions,
+    ``cfg.encoder.n_layers`` non-causal self-attention blocks (flash
+    attention with S = T = F under ``cfg.use_kernels``), a final norm."""
+    enc = params["encoder"]
+    F = frames.shape[1]
+    h = frames.to(cdtype(cfg)) + enc["pos"][None, :F]
+    positions = torch.arange(F, dtype=torch.int32, device=frames.device)
+    for w in enc["layers"]:
+        h, _ = apply_layer(cfg, ENC_SIG, w, h, mode="train",
+                           positions=positions)
+    return norm_apply(cfg, enc["norm"], h)
 
 
 def _embed_in(cfg: ModelConfig, params, tokens: torch.Tensor,
@@ -100,7 +140,11 @@ def _logits_out(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
             max_len: int = 0, last_pos: Optional[int] = None):
-    """``batch["tokens"]`` (B, S) int.  Returns (logits, aux) in mode
+    """``batch["tokens"]`` (B, S) int, with ``batch["media"]`` (B, M, D)
+    for a cross-attention model or ``batch["frames"]`` (B, F, D) for an
+    encoder-decoder (encoded first, then the decoder's media; whisper's
+    decoder layers are plain self-attention, so, as in the reference,
+    its logits do not read them).  Returns (logits, aux) in mode
     ``"train"``, logits (B, S, V) f32; (logits, aux, cache) in mode
     ``"prefill"``, logits (B, 1, V) f32 at the last position or at
     ``last_pos`` (the true last token of right-padded prompts), the cache
@@ -113,12 +157,15 @@ def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    media = batch.get("media")
+    if cfg.encoder:
+        media = _encode(cfg, params, batch["frames"])
     h = _embed_in(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache: List[Dict] = []
     for sig, w in zip(layer_sigs(cfg), params["layers"]):
         out = apply_layer(cfg, sig, w, h, mode=mode, positions=positions,
-                          max_len=max_len)
+                          media=media, max_len=max_len)
         h, a = out[0], out[1]
         aux = aux + a
         if mode == "prefill":
@@ -130,14 +177,20 @@ def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
     return _logits_out(cfg, params, h[:, lp:lp + 1]), aux, cache
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               media_len: int = 0, *,
                device: Union[str, torch.device, None] = "cuda"
                ) -> List[Dict]:
-    """Zeroed decode cache, one dict per layer: ``{"k", "v"}`` of
-    (batch, max_len, KV, hd) tensors for attention, ``{"conv", "state"}``
-    for an SSM layer."""
+    """Zeroed decode cache, one dict per layer (see the module
+    docstring).  ``media_len`` (the cross layers' media rows) defaults to
+    the encoder's frames or the config's media tokens, as the
+    reference's does."""
     dev = resolve_device(device)
-    return [init_layer_cache(cfg, sig, batch, max_len, device=dev)
+    if cfg.encoder and media_len == 0:
+        media_len = cfg.encoder.n_frames
+    if cfg.cross_attn and media_len == 0:
+        media_len = cfg.cross_attn.n_media_tokens
+    return [init_layer_cache(cfg, sig, batch, max_len, media_len, device=dev)
             for sig in layer_sigs(cfg)]
 
 
@@ -146,9 +199,10 @@ def decode_step(cfg: ModelConfig, params, cache: List[Dict],
                 ) -> Tuple[torch.Tensor, List[Dict]]:
     """One decode step.  tokens (B, 1) int; ``pos`` (an int) is the write
     index, the number of tokens already in the cache.  Updates ``cache``
-    in place (each attention layer's new K/V row, each SSM layer's conv
-    window and state) and returns the (B, 1, V) f32 logits and the
-    cache."""
+    in place (each attention layer's new K/V row, each MLA layer's latent
+    and RoPE-key rows, each SSM layer's conv window and state; a cross
+    layer reads the media K/V the prefill cached) and returns the
+    (B, 1, V) f32 logits and the cache."""
     h = _embed_in(cfg, params, tokens, pos0=pos)
     for sig, w, c in zip(layer_sigs(cfg), params["layers"], cache):
         h, _ = apply_layer(cfg, sig, w, h, mode="decode", cache=c, pos=pos)
@@ -158,9 +212,10 @@ def decode_step(cfg: ModelConfig, params, cache: List[Dict],
 def prefill(cfg: ModelConfig, params, batch: Dict, max_len: int,
             last_pos: Optional[int] = None
             ) -> Tuple[torch.Tensor, List[Dict]]:
-    """Process a prompt: returns the (B, 1, V) f32 logits of its last
-    position (or ``last_pos``, see :func:`forward`) and the filled cache,
-    padded to ``max_len``."""
+    """Process a prompt (``batch`` as in :func:`forward`): returns the
+    (B, 1, V) f32 logits of its last position (or ``last_pos``) and the
+    filled cache, padded to ``max_len`` (a cross layer's media K/V are
+    not padded)."""
     logits, _, cache = forward(cfg, params, batch, mode="prefill",
                                max_len=max_len, last_pos=last_pos)
     return logits[:, -1:], cache

@@ -14,9 +14,13 @@ and writes each decode step's K/V row into the cache in place.  The
 sampled tokens stay on the device between steps and reach the host once,
 at the end of ``generate``.  Temperature sampling draws from one
 ``torch.Generator`` seeded with ``seed`` on the engine's device; only
-greedy decoding is held to the reference.  The reference's ``extras``
-(media and frame embeddings) belong to the cross-attention and encoder
-slice (ROADMAP queue 1 item 3).
+greedy decoding is held to the reference.  The reference's
+``generate(extras=...)`` (media or frame embeddings added to the prefill
+batch) is not ported, and neither engine's ``run`` takes media: the
+cross-attention and encoder-decoder models run through
+:func:`repro_torch.models.prefill` and
+:func:`repro_torch.models.decode_step` with ``batch["media"]`` or
+``batch["frames"]``.
 """
 
 from __future__ import annotations

@@ -48,8 +48,66 @@ def test_kernel_flag_defaults_on():
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_config("deepseek-v2-lite-16b")
+    """Every config of the reference's catalog is ported; a name in no
+    catalog raises."""
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("gpt-2-1.5b")
+
+
+def test_catalog_is_the_references():
+    from repro.configs import ARCHS as REF_ARCHS
+    assert ARCHS == REF_ARCHS and len(ARCHS) == 10
+
+
+# arch: (n_layers, d_model, n_heads, n_kv_heads, hd, d_ff, vocab, family,
+#        norm, mlp, positions, tied) of the full config, then the reduced
+# config's (n_layers, d_model, n_heads, n_kv_heads, hd)
+CATALOG_PINS = {
+    "internlm2-20b": ((48, 6144, 48, 8, 128, 16384, 92544, "dense", "rms",
+                       "swiglu", "rope", False), (4, 128, 4, 2, 32)),
+    "mistral-nemo-12b": ((40, 5120, 32, 8, 128, 14336, 131072, "dense",
+                          "rms", "swiglu", "rope", False), (4, 128, 4, 2, 32)),
+    "yi-34b": ((60, 7168, 56, 8, 128, 20480, 64000, "dense", "rms", "swiglu",
+                "rope", False), (4, 128, 4, 2, 32)),
+    "deepseek-v2-lite-16b": ((27, 2048, 16, 16, 128, 10944, 102400, "moe",
+                              "rms", "swiglu", "rope", False),
+                             (4, 128, 4, 4, 32)),
+    "llama-3.2-vision-90b": ((100, 8192, 64, 8, 128, 28672, 128256, "vlm",
+                              "rms", "swiglu", "rope", False),
+                             (4, 128, 4, 2, 32)),
+    "whisper-base": ((6, 512, 8, 8, 64, 2048, 51865, "audio", "layer", "gelu",
+                      "learned", True), (4, 128, 4, 4, 32)),
+}
+
+
+@pytest.mark.parametrize("arch", list(CATALOG_PINS))
+def test_catalog_config_pinned(arch):
+    """The six configs this slice serves: published widths, and the
+    reduced variants the CPU tests run."""
+    cfg = get_config(arch)
+    full, small = CATALOG_PINS[arch]
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            cfg.d_ff, cfg.vocab_size, cfg.family, cfg.norm_type, cfg.mlp_type,
+            cfg.pos_embed, cfg.tie_embeddings) == full
+    r = cfg.reduced()
+    assert (r.n_layers, r.d_model, r.n_heads, r.n_kv_heads, r.hd) == small
+    if arch == "deepseek-v2-lite-16b":
+        m, e = cfg.mla, cfg.moe
+        assert (m.kv_lora_rank, m.q_lora_rank, m.qk_nope_dim, m.qk_rope_dim,
+                m.v_head_dim) == (512, 0, 128, 64, 128)
+        assert (e.n_experts, e.top_k, e.d_ff_expert, e.n_shared,
+                e.d_ff_shared, cfg.first_k_dense) == (64, 6, 1408, 2, 2816, 1)
+        assert [cfg.layer_is_moe(i) for i in range(3)] == [False, True, True]
+        assert (r.mla.qk_nope_dim + r.mla.qk_rope_dim, r.mla.v_head_dim,
+                r.moe.n_experts, r.moe.top_k, r.moe.d_ff_shared,
+                r.first_k_dense) == (32, 16, 4, 2, 64, 1)
+    if arch == "llama-3.2-vision-90b":
+        assert (cfg.cross_attn.period, cfg.cross_attn.n_media_tokens) == \
+            (5, 4100)
+        assert (r.cross_attn.period, r.cross_attn.n_media_tokens) == (2, 16)
+    if arch == "whisper-base":
+        assert (cfg.encoder.n_layers, cfg.encoder.n_frames) == (6, 1500)
+        assert (r.encoder.n_layers, r.encoder.n_frames) == (2, 32)
 
 
 def test_moe_config_pinned():

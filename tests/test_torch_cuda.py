@@ -16,7 +16,7 @@ magnitude) for the flash and decode kernels, whose outputs
 reach |x| >= 2 where an ulp is 2**-6 (the first paged-decode test keeps
 rtol 0: its outputs stay below 2); float16 atol 1e-3 plus rtol 2**-10
 (one f16 ulp); float32 atol 1e-5 (1e-4 for flash
-attention, whose sums run over up to 300 keys).  The MoE grouped GEMM:
+attention, whose sums run over up to 4100 keys).  The MoE grouped GEMM:
 bfloat16 atol 1e-2 plus rtol 2**-7 (both round the same f32 sums once,
 summed in different orders); float32 atol 2e-3 plus rtol 1e-5 (sums of
 up to 4096 products, outputs up to ~300 in magnitude).  The SSD scan:
@@ -706,3 +706,101 @@ def test_mfma_apply_on_the_card_matches_the_cpu(cuda, name):
     else:
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-6, atol=1e-6)
+
+
+# -- the catalog's new shapes (internlm2's G = 6, vision's cross layers over
+# 4100 media rows, whisper's encoder over 1500 frames, deepseek's experts) --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,KV,hd,S,T", [
+    (8, 2, 128, 517, 4100),     # vision cross layers: S != T, T % 64 = 4
+    (8, 2, 128, 1, 4100),       # a one-token prompt's cross layer
+    (1, 8, 64, 1500, 1500),     # whisper's encoder, S = T = 1500
+    (1, 8, 64, 700, 1500),      # hd 64 with S != T
+    (8, 2, 128, 130, 77),       # fewer keys than queries
+])
+def test_flash_noncausal_ragged(cuda, G, KV, hd, S, T, dtype):
+    """Non-causal flash at the cross and encoder shapes: every key row
+    attended, ragged S and T, one count per call."""
+    g = torch.Generator().manual_seed(S + T + hd)
+    q, k, v = (_randn(g, 1, S, G * KV, hd), _randn(g, 1, T, KV, hd),
+               _randn(g, 1, T, KV, hd))
+    q, k, v = (t.to(dtype).cuda() for t in (q, k, v))
+    before = launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=False)
+    assert torch.isfinite(got).all()
+    atol = 1e-4 if dtype == torch.float32 else ATOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=RTOL[dtype],
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,B,T,kv_len", [
+    (8, 2, 4100, 4100),         # vision's cross decode: all media rows
+    (8, 3, 4099, 4099),         # ragged T, no 64-row tile boundary
+    (6, 2, 2048, 2001),         # internlm2's grouping, sync decode
+])
+def test_decode_at_the_catalog_groupings(cuda, G, B, T, kv_len, dtype):
+    g = torch.Generator().manual_seed(G * T + B)
+    KV, hd = 2, 128
+    q = _randn(g, B, G * KV, hd)
+    k, v = _randn(g, B, T, KV, hd), _randn(g, B, T, KV, hd)
+    k[:, kv_len:], v[:, kv_len:] = float("nan"), float("inf")   # never read
+    q, k, v = (t.to(dtype).cuda() for t in (q, k, v))
+    before = launch_counts()["decode_attention"]
+    got = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert launch_counts()["decode_attention"] == before + 1
+    want = decode_attention_plain(q, k, v, kv_len)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=RTOL[dtype],
+                               atol=ATOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,kv_len", [(700, None), (300, 257)])
+def test_flash_at_g6(cuda, S, kv_len, dtype):
+    """internlm2's grouping, 6 query heads a KV head: the causal
+    prefill, one count per call."""
+    g = torch.Generator().manual_seed(S)
+    KV, hd = 2, 128
+    q, k, v = (_randn(g, 1, S, 6 * KV, hd), _randn(g, 1, S, KV, hd),
+               _randn(g, 1, S, KV, hd))
+    q, k, v = (t.to(dtype).cuda() for t in (q, k, v))
+    before = launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=True, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=True, kv_len=kv_len)
+    atol = 1e-4 if dtype == torch.float32 else ATOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=RTOL[dtype],
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,K,N", [(4, 2048, 1408), (4, 1408, 2048),
+                                   (236, 2048, 1408), (236, 1408, 2048)])
+def test_moe_gmm_at_64_experts(cuda, C, K, N, dtype):
+    """deepseek-v2-lite's expert products, 64 experts: a decode step's
+    capacity (4) and a 2000-token prefill's (236), gate/up and down."""
+    g = torch.Generator().manual_seed(C + K)
+    x, w = _moe_operands(g, 64, C, K, N, dtype)
+    before = launch_counts()["moe_gmm"]
+    got = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_gmm"] == before + 1
+    atol = 2e-3 if dtype == torch.float32 else ATOL[dtype]
+    rtol = 1e-5 if dtype == torch.float32 else RTOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               moe_gmm_plain(x, w).float().cpu().numpy(),
+                               rtol=rtol, atol=atol)

@@ -39,7 +39,13 @@ def test_port_and_chip_smoke_never_import_jax_or_reference():
     for mod in ("repro_torch.kernels.decode_attention",
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.serve.paged_engine", "repro_torch.serve.engine",
-                "repro_torch.convert", "repro_torch.models.attention"):
+                "repro_torch.convert", "repro_torch.models.attention",
+                "repro_torch.configs.deepseek_v2_lite_16b",
+                "repro_torch.configs.llama_3_2_vision_90b",
+                "repro_torch.configs.whisper_base",
+                "repro_torch.configs.internlm2_20b",
+                "repro_torch.configs.mistral_nemo_12b",
+                "repro_torch.configs.yi_34b"):
         assert mod in got["modules"]
 
 

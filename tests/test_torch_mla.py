@@ -1,0 +1,321 @@
+"""deepseek-v2-lite-16b against the reference, reduced, on the CPU: MLA
+(Multi-head Latent Attention), shared experts and a first dense layer.
+
+The reduced config has 4 layers: layer 0 with a dense FFN
+(``first_k_dense``), layers 1-3 MoE (4 experts, top-2, 2 shared experts
+of width 64); MLA with a latent of 32, query/key heads of 16 + 16 (no
+RoPE + RoPE) and value heads of 16.
+
+* Each MLA layer mode (train, prefill, decode) and the shared experts'
+  ``moe_apply``, layer by layer against the reference.
+* ``forward``, ``prefill`` and ``decode_step`` in float32 (rtol 1e-5)
+  on both paths.  In bfloat16 the same model is held stage by stage,
+  each layer fed the reference's input (rtol 2e-2): each layer then
+  differs from the reference by at most about one bf16 ulp, but four
+  random-weight MoE layers amplify such differences end to end, so
+  that a whole-model bf16 comparison at 2e-2 fails at single logits on
+  the plain path as on the kernel path (input seeds 7, 11, 12 and 13:
+  the worst logit at 0.99, 1.07, 8.4 and 1.08 times the limit on the
+  plain path, 1.06, 1.18, 8.1 and 2.7 times on the kernel path).  The earlier MoE model is held the same way
+  (``tests/test_torch_model.py``).  On the kernel path the
+  reference's Pallas ``moe_gmm`` must have run and its attention must
+  have fallen back (value head != query head): MLA's attention never ran
+  a TPU kernel, and the port's must launch none either, which a counting
+  wrapper around the attention kernels shows, while ``moe_gmm`` runs 3
+  times per MoE layer per call.
+* The sync engine's float32 greedy streams equal the reference's, one
+  request at a time, in a right-padded convoy (``batch=2``) and with
+  ``prefill_pad``; the paged engine refuses the latent cache, as the
+  reference's does.
+"""
+
+import dataclasses
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import dispatch as kdispatch
+from repro.models import blocks as jax_blocks
+from repro.models import model as jax_model
+from repro.models import moe as jax_moe
+from repro.models.model import init_cache as jax_init_cache
+from repro.serve import ServeEngine as JaxServeEngine
+from repro.serve.traces import get_trace as jax_get_trace
+from repro_torch.convert import to_tensor
+from repro_torch.models import blocks, decode_step, forward, init_cache, \
+    moe, prefill
+from repro_torch.models.attention import _attention_kernel, attention
+from repro_torch.serve import PagedKVCache, ServeEngine, get_trace
+
+from _torch_catalog import (CASE_IDS, CASES, RTOL, batches, check_forward,
+                            check_prefill_decode, close, models)
+
+ARCH = "deepseek-v2-lite-16b"
+# the reference's kernel path: moe_gmm runs, MLA's attention falls back
+FORWARD = {"flash_attention": False, "moe_gmm": True}
+ATTN = sys.modules["repro_torch.models.attention"]
+model = sys.modules["repro_torch.models.model"]
+MOE = sys.modules["repro_torch.models.moe"]
+
+
+def test_reduced_schedule_and_weights():
+    """Layer 0 dense, the rest MoE with shared experts; MLA weights and
+    caches of the reference's shapes, converted bit for bit."""
+    jcfg, jparams, cfg, params = models(ARCH)
+    m = cfg.mla
+    assert [s for s in blocks.layer_sigs(cfg)] == \
+        [("attn", False)] + [("attn", True)] * 3
+    assert len(params["layers"]) == cfg.n_layers == 4
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    H, D = cfg.n_heads, cfg.d_model
+    for i, layer in enumerate(params["layers"]):
+        shapes = {k: tuple(v.shape) for k, v in layer["mixer"].items()}
+        assert shapes == {"wq": (D, H * qk),
+                          "w_dkv": (D, m.kv_lora_rank + m.qk_rope_dim),
+                          "w_uk": (m.kv_lora_rank, H * m.qk_nope_dim),
+                          "w_uv": (m.kv_lora_rank, H * m.v_head_dim),
+                          "wo": (H * m.v_head_dim, D),
+                          "kv_norm": (m.kv_lora_rank,)}
+        if i == 0:
+            assert set(layer["ffn"]) == {"wg", "wi", "wo"}
+            ref = jparams["layers0"][0]["mixer"]["w_uk"]
+        else:
+            assert set(layer["ffn"]) == {"router", "we_g", "we_i", "we_o",
+                                         "shared"}
+            assert layer["ffn"]["shared"]["wg"].shape == \
+                (D, cfg.moe.d_ff_shared)
+            ref = jparams["layers"][0]["mixer"]["w_uk"][i - 1]
+        np.testing.assert_array_equal(layer["mixer"]["w_uk"].numpy(),
+                                      np.asarray(ref))
+    want = jax_init_cache(jcfg, 2, 32)
+    got = init_cache(cfg, 2, 32, device="cpu")
+    assert [set(c) for c in got] == [{"ckv", "krope"}] * 4
+    assert got[0]["ckv"].shape == want["layers0"][0]["ckv"].shape == \
+        (2, 32, m.kv_lora_rank)
+    assert got[1]["krope"].shape == want["layers"][0]["krope"].shape[1:] == \
+        (2, 32, m.qk_rope_dim)
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+def test_mla_layer_modes_match_reference(kernels):
+    """The dense MLA layer 0 through ``apply_layer`` in train, prefill
+    (output and padded latent cache) and decode (output and the cache
+    rows written in place), float32."""
+    jcfg, jparams, cfg, params = models(ARCH, "float32", kernels)
+    jw, w = jparams["layers0"][0], params["layers"][0]
+    sig = ("attn", False)
+    rng = np.random.default_rng(3)
+    h = rng.standard_normal((2, 19, cfg.d_model)).astype(np.float32)
+    pos = np.arange(19, dtype=np.int32)
+    jy, _ = jax_blocks.apply_layer(jcfg, sig, jw, jnp.asarray(h),
+                                   mode="train", positions=jnp.asarray(pos))
+    y, _ = blocks.apply_layer(cfg, sig, w, torch.from_numpy(h), mode="train",
+                              positions=torch.from_numpy(pos))
+    close(y, jy, RTOL["float32"])
+    jy, _, jc = jax_blocks.apply_layer(jcfg, sig, jw, jnp.asarray(h),
+                                       mode="prefill",
+                                       positions=jnp.asarray(pos), max_len=24)
+    y, _, c = blocks.apply_layer(cfg, sig, w, torch.from_numpy(h),
+                                 mode="prefill",
+                                 positions=torch.from_numpy(pos), max_len=24)
+    close(y, jy, RTOL["float32"])
+    assert set(c) == {"ckv", "krope"}
+    for n in c:
+        assert c[n].shape[:2] == (2, 24)
+        close(c[n], jc[n], RTOL["float32"])
+    x1 = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    jy, jc = jax_blocks.apply_layer(jcfg, sig, jw, jnp.asarray(x1),
+                                    mode="decode", cache=jc, pos=jnp.int32(19))
+    y, c2 = blocks.apply_layer(cfg, sig, w, torch.from_numpy(x1),
+                               mode="decode", cache=c, pos=19)
+    assert c2 is c
+    close(y, jy, RTOL["float32"])
+    for n in c:
+        close(c[n], jc[n], RTOL["float32"])
+
+
+@pytest.mark.parametrize("dtype,kernels", CASES, ids=CASE_IDS)
+def test_shared_experts_match_reference(dtype, kernels):
+    """An MoE layer's ``moe_apply`` with its 2 shared experts: output and
+    aux loss against the reference's."""
+    jcfg, jparams, cfg, params = models(ARCH, dtype, kernels)
+    jw = jax.tree.map(lambda a: a[0], jparams["layers"][0]["ffn"])
+    w = params["layers"][1]["ffn"]
+    x = np.random.default_rng(4).standard_normal(
+        (2, 23, cfg.d_model)).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    with kdispatch.decision_scope() as decisions:
+        jy, jaux = jax_moe.moe_apply(jcfg, jw, jx)
+    assert bool(decisions) == kernels
+    y, aux = moe.moe_apply(cfg, w, torch.from_numpy(x).to(getattr(torch,
+                                                                   dtype)))
+    close(y, jy, RTOL[dtype])
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=RTOL[dtype])
+    # the shared experts are really in y: without them it moves
+    bare_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_shared=0, d_ff_shared=0))
+    bare = moe.moe_apply(bare_cfg, w,
+                         torch.from_numpy(x).to(getattr(torch, dtype)))[0]
+    assert float((bare.float() - y.float()).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+def test_forward_train_matches_reference(kernels):
+    check_forward(ARCH, "float32", kernels, FORWARD)
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+def test_prefill_and_decode_step_match_reference(kernels):
+    check_prefill_decode(ARCH, "float32", kernels, FORWARD)
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+def test_bf16_model_matches_reference_layer_by_layer(kernels):
+    """The bfloat16 model, every stage fed the reference's input: the
+    embedding, each layer's prefill (output and cache) and decode step
+    (output and the updated cache, from the reference's cache), and the
+    logits of the reference's final hidden state, each within rtol 2e-2
+    (see the module docstring for why not end to end)."""
+    jcfg, jparams, cfg, params = models(ARCH, "bfloat16", kernels)
+    jb, tb = batches(cfg, 2, 21, 7)
+    rtol, S, max_len = RTOL["bfloat16"], 21, 32
+    nxt = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 1))
+    jh = jax_model._embed_in(jcfg, jparams, jb["tokens"])
+    jd = jax_model._embed_in(jcfg, jparams, jnp.asarray(nxt, jnp.int32),
+                             pos0=jnp.int32(S))
+    close(model._embed_in(cfg, params, tb["tokens"]), jh, 0.0)
+    pos = np.arange(S, dtype=np.int32)
+    jlayers = jparams["layers0"] + [
+        jax.tree.map(lambda a: a[i], jparams["layers"][0])
+        for i in range(cfg.n_layers - 1)]
+    for i, sig in enumerate(blocks.layer_sigs(cfg)):
+        h_in = torch.from_numpy(np.asarray(jh, np.float32)).bfloat16()
+        jh, _, jc = jax_blocks.apply_layer(
+            jcfg, sig, jlayers[i], jh, mode="prefill",
+            positions=jnp.asarray(pos), max_len=max_len)
+        h, _, c = blocks.apply_layer(cfg, sig, params["layers"][i], h_in,
+                                     mode="prefill",
+                                     positions=torch.from_numpy(pos),
+                                     max_len=max_len)
+        close(h, jh, rtol)
+        for n in c:
+            close(c[n], jc[n], rtol)
+        carried = {n: to_tensor(np.asarray(a), "cpu") for n, a in jc.items()}
+        d_in = torch.from_numpy(np.asarray(jd, np.float32)).bfloat16()
+        jd, jc = jax_blocks.apply_layer(jcfg, sig, jlayers[i], jd,
+                                        mode="decode", cache=jc,
+                                        pos=jnp.int32(S))
+        d, c = blocks.apply_layer(cfg, sig, params["layers"][i], d_in,
+                                  mode="decode", cache=carried, pos=S)
+        close(d, jd, rtol)
+        for n in c:
+            close(c[n], jc[n], rtol)
+    for jx in (jh, jd):
+        x = torch.from_numpy(np.asarray(jx, np.float32)).bfloat16()
+        close(model._logits_out(cfg, params, x),
+              jax_model._logits_out(jcfg, jparams, jx), rtol)
+
+
+def _counted(monkeypatch):
+    """Count the calls the model layers make to each kernel wrapper."""
+    calls = {"flash_attention": 0, "decode_attention": 0, "moe_gmm": 0}
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+
+        def counted(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+
+    wrap(ATTN, "flash_attention")
+    wrap(ATTN, "decode_attention")
+    wrap(MOE, "moe_gmm")
+    return calls
+
+
+def test_mla_launches_no_attention_kernel(monkeypatch):
+    """Under ``use_kernels`` a prefill and a decode step of the MLA model
+    call ``moe_gmm`` 3 times per MoE layer each and no attention kernel;
+    the same wrappers count a dense model's attention, so they are the
+    ones the layers call."""
+    calls = _counted(monkeypatch)
+    _, _, cfg, params = models(ARCH, "float32", True)
+    _, tb = batches(cfg, 2, 21, 5)
+    _, cache = prefill(cfg, params, tb, 32)
+    decode_step(cfg, params, cache, tb["tokens"][:, :1], 21)
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    assert calls == {"flash_attention": 0, "decode_attention": 0,
+                     "moe_gmm": 3 * n_moe * 2}
+    _, _, dense_cfg, dense_params = models("internlm2-20b", "float32", True)
+    forward(dense_cfg, dense_params, batches(dense_cfg, 1, 9, 5)[1])
+    assert calls["flash_attention"] == dense_cfg.n_layers
+
+
+def test_attention_kernel_still_refuses_asymmetric_heads():
+    """MLA calls the plain path itself; any other caller that hands the
+    kernel path a value head unlike the query head gets
+    ``NotImplementedError``, as before."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 5, 4, 32), generator=g)
+    k = torch.randn((1, 5, 4, 32), generator=g)
+    v = torch.randn((1, 5, 4, 16), generator=g)
+    for S in (5, 1):
+        with pytest.raises(NotImplementedError, match="asymmetric heads"):
+            _attention_kernel(q[:, :S], k, v, causal=S > 1,
+                              scale=32 ** -0.5, kv_len=None)
+        with pytest.raises(NotImplementedError, match="asymmetric heads"):
+            attention(q[:, :S], k, v, causal=S > 1, use_kernels=True)
+    assert attention(q, k, v, causal=True).shape == (1, 5, 4, 16)
+
+
+def _trace(cfg, n, seed):
+    kw = dict(max_len=128, seed=seed)
+    jreqs = jax_get_trace("base")(n, cfg.vocab_size, **kw)
+    reqs = get_trace("base")(n, cfg.vocab_size, **kw)
+    for a, b in zip(jreqs, reqs):
+        a.n_steps = b.n_steps = 12
+    return jreqs, reqs
+
+
+@pytest.mark.parametrize("batch", [1, 2], ids=["solo", "convoy"])
+def test_sync_engine_streams_match_reference(batch):
+    """float32 greedy streams equal the reference's; ``batch=2`` pads the
+    shorter prompt, so its latent rows past the prompt are the padding's,
+    as in the reference."""
+    jcfg, jparams, cfg, params = models(ARCH)
+    cfg = dataclasses.replace(cfg, use_kernels=True)
+    jreqs, reqs = _trace(cfg, 3, seed=2)
+    if batch > 1:
+        assert len({r.prompt.shape[0] for r in reqs[:2]}) == 2
+    jres, _ = JaxServeEngine(jcfg, jparams, max_len=128).run(jreqs,
+                                                             batch=batch)
+    res, _ = ServeEngine(cfg, params, max_len=128, device="cpu").run(
+        reqs, batch=batch)
+    for a, b in zip(jres, res):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_prefill_pad_keeps_the_stream():
+    _, _, cfg, params = models(ARCH)
+    _, reqs = _trace(cfg, 1, seed=4)
+    p = reqs[0].prompt[None]
+    a = ServeEngine(cfg, params, max_len=128, device="cpu")
+    b = ServeEngine(cfg, params, max_len=128, prefill_pad=True, device="cpu")
+    np.testing.assert_array_equal(a.generate(p, n_steps=8).tokens,
+                                  b.generate(p, n_steps=8).tokens)
+
+
+def test_paged_engine_refuses_the_latent_cache():
+    _, _, cfg, params = models(ARCH)
+    with pytest.raises(NotImplementedError, match="mla latent cache"):
+        PagedKVCache(cfg, n_blocks=4, page=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="only plain GQA"):
+        blocks.apply_layer_paged(cfg, ("attn", False), params["layers"][0],
+                                 torch.zeros((1, 1, cfg.d_model)), {},
+                                 torch.zeros((1, 1), dtype=torch.int32),
+                                 torch.zeros((1,), dtype=torch.int32))
