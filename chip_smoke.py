@@ -145,7 +145,26 @@ depends on it, so that one run reports every such failure):
     at S = T = 1500 held and timed beside SDPA and its bound,
     ``_encode`` held to the plain path's (2e-2), then the greedy loops
     of 18 for prompts of 448 and 117 tokens (flash 12 x prefills,
-    decode 6 x steps).
+    decode 6 x steps);
+20. training on the plain path (no kernel has a backward, in either
+    package; none may launch): qwen2-7b at full width cut to 4 of 28
+    layers (~2.0 B params, random bf16 weights from a seed), remat
+    "full", 2 microbatches, on ``SyntheticLM`` batches of 4 x 1024
+    tokens through ``prefetch_to_device``.  (a) step 0's gradient
+    against a float32 copy's, before any optimizer state exists: the
+    whole gradient's relative norm error < 5e-2, the cosine between the
+    two >= 0.99, the CE within 1e-2 of float32's, the worst leaf
+    printed; (b) 8 AdamW steps (lr 1e-3, 2 warm-up steps): the mean of
+    the last 3 losses below step 0's; (c) the mean wall time of steps
+    2-7, tokens/s, the model-FLOP share of the bf16 peak, one profiled
+    step's device time, launches, idle share and cuBLAS share, the
+    forward and backward apart from the AdamW update, peak device
+    memory;
+    (d) ``examples/torch_train_lm.py``'s smoke preset under the
+    controller, 30 steps, checkpoints every 10, a ``WorkerFailure`` at
+    step 15: one restart, and the final parameters within 1e-2 relative
+    norm of an uninterrupted run's (the embedding backward's atomics
+    make runs on the card differ in their last bits).
 
 Each phase prints its wall time.  The last three lines are the card's
 name and power limit, a JSON record of every kernel (with its timed
@@ -158,10 +177,12 @@ jax or the reference package.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -232,6 +253,18 @@ VLM_RUN = dict(max_len=2048, prompts=(2000, 517), n_steps=16, seed=12)
 # is 448 tokens
 ENC = dict(arch="whisper-base", seed=13)
 ENC_RUN = dict(max_len=512, prompts=(448, 117), n_steps=16, seed=14)
+# training: qwen2-7b at full width cut to 4 of 28 layers (~2.02 B params:
+# bf16 weights 4 GB, f32 moments 16 GB, and a functional step holds two
+# states at its end, ~45 GB with the gradients; 8 layers would leave too
+# little room for the activations on an 80 GB card)
+TRAIN = dict(arch="qwen2-7b", n_layers=4, microbatches=2, seed=15,
+             batch=4, seq_len=1024, steps=8, lr=1e-3, warmup_steps=2)
+GRAD_REL_TOL = 5e-2     # the bf16 gradient's relative norm error
+GRAD_COS_MIN = 0.99     # cosine of the bf16 and float32 gradients
+CE_REL_TOL = 1e-2       # bf16 CE against float32's
+# the controller on the training example's smoke preset
+CONTROLLER = dict(preset="smoke", steps=30, ckpt_every=10, fail_at=15,
+                  rel_tol=1e-2)
 
 
 class Failure(Exception):
@@ -2338,6 +2371,183 @@ def phase_encoder(torch, records):
     torch.cuda.empty_cache()
 
 
+# -- phase 20: training -------------------------------------------------------
+
+def grad_agreement(g16, g32):
+    """(relative norm error, cosine, worst leaf, its relative error) of
+    the bf16 gradient tree against the float32 one, in f64 sums."""
+    from repro_torch.tree import flatten_with_path
+    num = den = dot = n16 = 0.0
+    worst = ("", 0.0)
+    for (path, a), b in zip(flatten_with_path(g16), _leaves(g32)):
+        a, b = a.float(), b.float()
+        d2 = float((a - b).double().square().sum())
+        b2 = float(b.double().square().sum())
+        num, den = num + d2, den + b2
+        dot += float((a.double() * b.double()).sum())
+        n16 += float(a.double().square().sum())
+        rel = math.sqrt(d2 / b2) if b2 > 0 else math.inf
+        if rel > worst[1]:
+            worst = ("/".join(map(str, path)), rel)
+    return math.sqrt(num / den), dot / math.sqrt(n16 * den), worst
+
+
+def train_flops(cfg, n_matmul_params: int, tokens: int, seq: int) -> float:
+    """Model FLOP of one step: 6 x the parameters that multiply x tokens
+    (forward and backward), plus the attention score and value products,
+    12 x layers x H x hd x S per token (causal masking not subtracted;
+    remat's recompute not counted)."""
+    return (6.0 * n_matmul_params * tokens
+            + 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd * seq * tokens)
+
+
+def phase_train(torch):
+    """Phase 20 (see the module docstring)."""
+    from repro_torch.arch import get_device
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, prefetch_to_device
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import (OptConfig, adamw_update, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.step import loss_and_grads
+    full = get_config(TRAIN["arch"])
+    cfg = dataclasses.replace(full, n_layers=TRAIN["n_layers"],
+                              use_kernels=False, remat="full",
+                              microbatches=TRAIN["microbatches"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    params = draw_params(
+        torch, cfg, TRAIN["seed"],
+        f"{cfg.name} full width (d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads of "
+        f"{cfg.hd}, vocab {cfg.vocab_size}) cut in depth from "
+        f"{full.n_layers} to {cfg.n_layers} layers for training")
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_matmul = n_params - params["embed"].numel()
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    data = SyntheticLM(cfg.vocab_size, batch=B, seq_len=S, seed=0,
+                       correlation=0.9)
+    batches = prefetch_to_device((data(i) for i in range(TRAIN["steps"])),
+                                 size=2, device="cuda")
+    batch0 = next(batches)
+
+    # (a) the bf16 gradient against a float32 copy's, before the optimizer
+    # state exists
+    t0 = time.perf_counter()
+    _, m16, g16 = loss_and_grads(cfg, params, batch0)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = _map(lambda t: t.float(), params)
+    _, m32, g32 = loss_and_grads(cfg32, p32, batch0)
+    del p32
+    rel, cos, (worst, worst_rel) = grad_agreement(g16, g32)
+    ce16, ce32 = float(m16["ce"]), float(m32["ce"])
+    del g16, g32
+    torch.cuda.empty_cache()
+    ce_rel = abs(ce16 - ce32) / abs(ce32)
+    print(f"phase 20 (a): bf16 gradient vs float32: relative norm error "
+          f"{rel:.5f} (limit {GRAD_REL_TOL}), cosine {cos:.6f} (at least "
+          f"{GRAD_COS_MIN}), worst leaf {worst} at {worst_rel:.5f}; CE "
+          f"bf16 {ce16:.6f}, float32 {ce32:.6f}, relative {ce_rel:.2e} "
+          f"(limit {CE_REL_TOL}); {time.perf_counter() - t0:.1f} s")
+    check(rel < GRAD_REL_TOL, f"phase 20: the bf16 gradient lies {rel:.5f} "
+          f"from float32's (relative norm), over {GRAD_REL_TOL}")
+    check(cos >= GRAD_COS_MIN, f"phase 20: the bf16 and float32 gradients' "
+          f"cosine {cos:.6f} is under {GRAD_COS_MIN}")
+    check(ce_rel < CE_REL_TOL, f"phase 20: bf16 CE {ce16} lies {ce_rel:.2e} "
+          f"from float32's {ce32}, over {CE_REL_TOL}")
+
+    # (b) the loss falls over 8 steps; (c) their times
+    opt = OptConfig(lr=TRAIN["lr"], warmup_steps=TRAIN["warmup_steps"],
+                    total_steps=TRAIN["steps"])
+    step = make_train_step(cfg, opt)
+    state = (params, init_opt_state(params))
+    del params
+    losses, walls = [], []
+    batch = batch0
+    for i in range(TRAIN["steps"]):
+        if i:
+            batch = next(batches)
+        t0 = time.perf_counter()
+        p, o, m = step(*state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        state = (p, o)
+        losses.append(float(m["loss"]))
+        print(f"phase 20 (b) step {i}: loss {losses[-1]:.6f}, grad_norm "
+              f"{float(m['grad_norm']):.6f}, lr {float(m['lr']):.3e}, "
+              f"{walls[-1] * 1e3:.1f} ms")
+    last3 = sum(losses[-3:]) / 3
+    check(last3 < losses[0], f"phase 20: the loss did not fall: step 0 "
+          f"{losses[0]}, mean of the last 3 {last3}")
+    wall = sum(walls[2:]) / len(walls[2:])
+    tokens = B * S
+    flops = train_flops(cfg, n_matmul, tokens, S)
+    peak = get_device("h100").peak_flops
+    share = flops / wall / peak
+    print(f"phase 20 (c): {n_params / 1e9:.3f} B params ({n_matmul / 1e9:.3f}"
+          f" B that multiply); steps 2-{TRAIN['steps'] - 1} mean wall "
+          f"{wall * 1e3:.1f} ms, {tokens / wall:.0f} tokens/s; {flops:.4e} "
+          f"model FLOP a step, {flops / wall / 1e12:.1f} TFLOP/s, "
+          f"{100 * share:.1f}% of the bf16 peak ({peak / 1e12:.0f} TFLOP/s)")
+    profile(torch, f"train step (qwen2-7b, {cfg.n_layers} layers, {B} x {S} "
+                   f"tokens, {cfg.microbatches} microbatches)",
+            lambda: step(*state, batch)[2]["loss"].item(), n_wall=2,
+            parts={"GEMMs (cuBLAS)": ("nvjet", "gemm", "cutlass", "xmma")})
+    t_grads, t_opt = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _, _, grads = loss_and_grads(cfg, state[0], batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adamw_update(opt, state[0], grads, state[1])
+        torch.cuda.synchronize()
+        t_grads.append(t1 - t0)
+        t_opt.append(time.perf_counter() - t1)
+        del grads
+    print(f"phase 20 (c): of a step, forward and backward (2 microbatches) "
+          f"{min(t_grads) * 1e3:.1f} ms, the AdamW update "
+          f"{min(t_opt) * 1e3:.1f} ms (wall, the faster of 2 calls each)")
+    launched = {k: v for k, v in launch_counts().items() if v}
+    check(not launched, f"phase 20: the training path launched kernels "
+          f"{launched}; it has no backward through them")
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 20: peak device memory {peak_mem:.2f} GiB; kernel "
+          f"launches 0")
+    del state, p, o, m, batch, batch0
+    torch.cuda.empty_cache()
+
+    # (d) the controller and checkpoints at the example's smoke preset
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", ROOT / "examples" / "torch_train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    c = CONTROLLER
+    with tempfile.TemporaryDirectory() as tmp:
+        _, (pa, _), _, ctl_a, dt_a = example.train(
+            c["preset"], steps=c["steps"], ckpt_dir=f"{tmp}/a",
+            ckpt_every=c["ckpt_every"], device="cuda")
+        _, (pb, _), log_b, ctl_b, dt_b = example.train(
+            c["preset"], steps=c["steps"], ckpt_dir=f"{tmp}/b",
+            ckpt_every=c["ckpt_every"], inject_failure=c["fail_at"],
+            device="cuda")
+    num = sum(float((a.float() - b.float()).double().square().sum())
+              for a, b in zip(_leaves(pa), _leaves(pb)))
+    den = sum(float(a.float().double().square().sum()) for a in _leaves(pa))
+    drift = math.sqrt(num / den)
+    restart = [e for e in log_b if e.get("event") == "restart"]
+    print(f"phase 20 (d): smoke preset, {c['steps']} steps, checkpoints "
+          f"every {c['ckpt_every']}: uninterrupted {dt_a:.2f} s, with a "
+          f"failure at step {c['fail_at']} {dt_b:.2f} s, restarts "
+          f"{ctl_b.restarts} ({restart}); final parameters "
+          f"{drift:.3e} apart (relative norm, limit {c['rel_tol']})")
+    check(ctl_a.restarts == 0 and ctl_b.restarts == 1,
+          f"phase 20: restarts {ctl_a.restarts} and {ctl_b.restarts}, "
+          f"expected 0 and 1")
+    check(drift < c["rel_tol"], f"phase 20: the restarted run's parameters "
+          f"lie {drift:.3e} from the uninterrupted run's, over "
+          f"{c['rel_tol']}")
+
+
 def draw_params(torch, cfg, seed: int, what: str):
     from repro_torch.models import init_params
     t0 = time.perf_counter()
@@ -2491,6 +2701,8 @@ def main() -> int:
         lap("phase 18 (llama-3.2-vision-90b)")
         phase_encoder(torch, records)
         lap("phase 19 (whisper-base)")
+        phase_train(torch)
+        lap("phase 20 (training)")
         for rec in records.values():
             rec["launches"] = sum(rec["launches_by_phase"].values())
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [

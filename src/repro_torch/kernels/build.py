@@ -30,7 +30,7 @@ from typing import Dict, Iterable, List
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc", "library_path",
-           "build", "load", "launch", "build_logs"]
+           "build", "load", "launch", "build_logs", "no_grad_operands"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -153,3 +153,21 @@ def launch(name: str, argtypes, *args, device=None) -> None:
         msg_fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{msg_fn(err).decode()} ({err})")
+
+
+def no_grad_operands(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and an operand of
+    kernel ``name`` requires grad.  The kernels (and, for the same
+    contract on the CPU, their wrappers' plain versions) have no
+    backward, as the reference's ``pallas_call`` has none: a kernel's
+    output is written through ``ctypes`` into a fresh tensor that
+    autograd does not see, so a loss through it would silently get no
+    gradient for its inputs.  Train on ``use_kernels=False``, the
+    reference's training path."""
+    if not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, but the kernel has no "
+            "backward (as the reference's pallas_call has none); run it "
+            "under torch.no_grad(), or train with use_kernels=False")

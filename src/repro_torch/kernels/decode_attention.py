@@ -198,6 +198,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     engine points unused slots at its null block 0); they are not
     checked here, because that would stall every decode tick on a
     device-to-host copy."""
+    build.no_grad_operands(NAME, q, k_pool, v_pool)
     _check(q, k_pool, v_pool, block_tables, kv_len)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
@@ -363,6 +364,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, hd); k/v (B, T, KV, hd); ``kv_len`` an int, or a (B,)
     int32 tensor of per-request lengths, counting the cache rows each
     request attends (clamped to T).  Returns (B, H, hd) in q's dtype."""
+    build.no_grad_operands(DECODE, q, k, v)
     _check_decode(q, k, v, kv_len)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len)

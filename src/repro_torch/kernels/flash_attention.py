@@ -144,6 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     int (default T) masking key rows at or past it.  Returns
     (B, S, H, hd) in q's dtype.  The causal mask is ``key <= query``
     with both counted from row 0, as in the reference kernel."""
+    build.no_grad_operands(NAME, q, k, v)
     _check(q, k, v)
     T = k.shape[1]
     n = T if kv_len is None else max(0, min(int(kv_len), T))

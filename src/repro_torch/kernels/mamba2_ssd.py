@@ -197,6 +197,7 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``ValueError`` for what the kernel does not take: ds outside
     (16, 32, 64, 128), hd not a multiple of 16, mismatched shapes, types
     or devices, non-contiguous operands."""
+    build.no_grad_operands(NAME, x, dt, A, Bm, Cm)
     _check(x, dt, A, Bm, Cm)
     if x.device.type == "cpu":
         return mamba2_ssd_plain(x, dt, A, Bm, Cm)

@@ -157,6 +157,7 @@ def mfma_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     """a (M, K) @ b (K, N) + c (M, N) -> (M, N) in c's dtype, accumulated
     in f32 from c.  Raises ``ValueError`` for operands the kernel does
     not take (mismatched shapes: "incompatible operands")."""
+    build.no_grad_operands(NAME, a, b, c)
     _check(a, b, c)
     if a.device.type == "cpu":
         return mfma_gemm_plain(a, b, c)

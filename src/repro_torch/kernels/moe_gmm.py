@@ -90,6 +90,7 @@ def _kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, K) @ w (E, K, N) -> (E, C, N) in x's dtype, accumulated
     in f32.  Raises ``ValueError`` when E or K disagree."""
+    build.no_grad_operands(NAME, x, w)
     _check(x, w)
     if x.device.type == "cpu":
         return moe_gmm_plain(x, w)

@@ -36,6 +36,10 @@ def mm(a: torch.Tensor, b: torch.Tensor,
     returns its own dtype goes to cuBLAS as is (f32 accumulation, one
     rounding at the end); one that returns f32 against a 2-D weight asks
     cuBLAS for an f32 output directly, so the weight is never upcast.
+    That product has no derivative in PyTorch; when an operand requires
+    grad it runs through :class:`_MmF32`, whose backward rounds the f32
+    output gradient to the operands' dtype once and accumulates both
+    products in f32.
     """
     out = torch.float32 if out_dtype is None else out_dtype
     low = a.dtype in (torch.bfloat16, torch.float16)
@@ -43,9 +47,32 @@ def mm(a: torch.Tensor, b: torch.Tensor,
         if out == a.dtype:
             return torch.matmul(a, b)
         if b.dim() == 2 and out == torch.float32:
-            y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=out)
+            a2 = a.reshape(-1, a.shape[-1])
+            if torch.is_grad_enabled() and (a.requires_grad
+                                            or b.requires_grad):
+                y = _MmF32.apply(a2, b)
+            else:
+                y = torch.mm(a2, b, out_dtype=out)
             return y.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float()).to(out)
+
+
+class _MmF32(torch.autograd.Function):
+    """a (M, K) @ b (K, N) of bf16/f16 operands with an f32 output (one
+    cuBLAS call), differentiable."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = torch.mm(g, b.t()) if ctx.needs_input_grad[0] else None
+        gb = torch.mm(a.t(), g) if ctx.needs_input_grad[1] else None
+        return ga, gb
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,

@@ -34,16 +34,23 @@ written in place by the steps below:
 ``batch["media"]`` (B, M, D) for a cross-attention model and
 ``batch["frames"]`` (B, F, D) for an encoder-decoder, whose encoder
 (:func:`_encode`) runs first and becomes the decoder's media, as in the
-reference.  The loss and the backward pass are the training slice
-(ROADMAP queue 1 item 4).
+reference.  :func:`loss_fn` is the training loss (next-token CE in f32
+from :func:`_chunked_ce`, plus the MoE balance loss), differentiated by
+autograd on the plain path (``use_kernels=False``; the kernels have no
+backward, as the reference's Pallas kernels have none).  In a train
+forward that autograd records each layer runs under :func:`_remat`,
+the config's activation-checkpoint policy.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (apply_layer, apply_layer_paged,
@@ -53,12 +60,48 @@ from repro_torch.models.blocks import (apply_layer, apply_layer_paged,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cdtype, embed_apply, norm_apply,
                                        unembed_apply)
+from repro_torch.tree import leaves
 
-__all__ = ["init_params", "forward", "init_cache", "decode_step", "prefill",
-           "paged_decode_step", "paged_prefill_step", "LEARNED_POS_LEN"]
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
+           "prefill", "paged_decode_step", "paged_prefill_step",
+           "LEARNED_POS_LEN"]
 
 LEARNED_POS_LEN = 32768  # rows of the learned-position table, as the reference
 ENC_SIG = ("enc_attn", False)
+# the products whose outputs remat "dots" keeps (jax's checkpoint_dots)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.mm.dtype,
+         torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` (one layer of a train forward) under the config's
+    activation-checkpoint policy: ``"full"`` recomputes all of it in the
+    backward, ``"dots"`` keeps the matmul outputs and recomputes the
+    rest, ``"none"`` keeps everything."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=ctx)
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _layer_runner(cfg: ModelConfig, params):
+    """Wraps a layer of a train forward in :func:`_remat` when autograd
+    records the forward (grad mode on and a parameter requires grad);
+    otherwise nothing is kept for a backward and the layer runs as is."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in leaves(params)):
+        return functools.partial(_remat, cfg)
+    return lambda fn: fn
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -105,9 +148,14 @@ def _encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     F = frames.shape[1]
     h = frames.to(cdtype(cfg)) + enc["pos"][None, :F]
     positions = torch.arange(F, dtype=torch.int32, device=frames.device)
+
+    def layer(hh, w):
+        return apply_layer(cfg, ENC_SIG, w, hh, mode="train",
+                           positions=positions)[0]
+
+    layer = _layer_runner(cfg, params)(layer)
     for w in enc["layers"]:
-        h, _ = apply_layer(cfg, ENC_SIG, w, h, mode="train",
-                           positions=positions)
+        h = layer(h, w)
     return norm_apply(cfg, enc["norm"], h)
 
 
@@ -139,7 +187,8 @@ def _logits_out(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
-            max_len: int = 0, last_pos: Optional[int] = None):
+            max_len: int = 0, last_pos: Optional[int] = None,
+            with_hidden: bool = False):
     """``batch["tokens"]`` (B, S) int, with ``batch["media"]`` (B, M, D)
     for a cross-attention model or ``batch["frames"]`` (B, F, D) for an
     encoder-decoder (encoded first, then the decoder's media; whisper's
@@ -150,7 +199,11 @@ def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
     ``last_pos`` (the true last token of right-padded prompts), the cache
     padded to ``max_len``.
     ``aux`` is the sum of the layers' MoE balance losses, a zero f32
-    scalar for a dense model."""
+    scalar for a dense model.  ``with_hidden`` (mode ``"train"``)
+    returns (None, aux, h) instead, h (B, S, D) the final-normed hidden
+    states, for the loss to form its logits chunk by chunk.  When
+    autograd records it, a train forward runs each layer under
+    :func:`_remat`."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward: mode must be 'train' or 'prefill', got "
                          f"{mode!r}")
@@ -163,18 +216,66 @@ def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
     h = _embed_in(cfg, params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache: List[Dict] = []
-    for sig, w in zip(layer_sigs(cfg), params["layers"]):
-        out = apply_layer(cfg, sig, w, h, mode=mode, positions=positions,
-                          media=media, max_len=max_len)
-        h, a = out[0], out[1]
-        aux = aux + a
-        if mode == "prefill":
-            cache.append(out[2])
     if mode == "train":
+        run = _layer_runner(cfg, params)
+        for sig, w in zip(layer_sigs(cfg), params["layers"]):
+            layer = run(functools.partial(
+                apply_layer, cfg, sig, mode="train", positions=positions,
+                media=media))
+            h, a = layer(w, h)
+            aux = aux + a
+        if with_hidden:
+            return None, aux, norm_apply(cfg, params["final_norm"], h)
         return _logits_out(cfg, params, h), aux
+    for sig, w in zip(layer_sigs(cfg), params["layers"]):
+        h, a, c = apply_layer(cfg, sig, w, h, mode=mode, positions=positions,
+                              media=media, max_len=max_len)
+        aux = aux + a
+        cache.append(c)
     # only the last position's logits are needed: slice before the unembed
     lp = S - 1 if last_pos is None else int(last_pos)
     return _logits_out(cfg, params, h[:, lp:lp + 1]), aux, cache
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (f32) plus the MoE balance loss:
+    (ce + aux, {"ce", "aux"}), 0-d f32 tensors.  ``batch`` is
+    :func:`forward`'s with ``labels`` (B, S) int."""
+    _, aux, h = forward(cfg, params, batch, mode="train", with_hidden=True)
+    w_un = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    ce = _chunked_ce(cfg, h, w_un, batch["labels"])
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _chunked_ce(cfg: ModelConfig, h: torch.Tensor, w_un: torch.Tensor,
+                labels: torch.Tensor, n_chunks: int = 4) -> torch.Tensor:
+    """mean(logsumexp(logits) - logit[label]) over (B, S), in chunks of
+    the batch dimension (``n_chunks``, reduced until it divides B).  Each
+    chunk's (bc, S, V) f32 logits are recomputed in the backward
+    (checkpointed), so only one chunk's logits live at a time.  The
+    correct-class logit is a masked sum over the vocabulary, as the
+    reference forms it, not a gather."""
+    B, S, _ = h.shape
+    V = w_un.shape[-1]
+    while n_chunks > 1 and B % n_chunks:
+        n_chunks -= 1
+    bc = B // n_chunks
+    vocab = torch.arange(V, device=h.device)
+
+    def chunk_ce(h_c, lab_c):
+        logits = unembed_apply(cfg, w_un, h_c)               # (bc, S, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        eq = lab_c[..., None] == vocab
+        correct = torch.where(eq, logits, 0.0).sum(-1)
+        return torch.sum(lse - correct)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        rows = slice(i * bc, (i + 1) * bc)
+        total = total + checkpoint(chunk_ce, h[rows], labels[rows],
+                                   use_reentrant=False)
+    return total / (B * S)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

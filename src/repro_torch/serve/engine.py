@@ -14,20 +14,18 @@ and writes each decode step's K/V row into the cache in place.  The
 sampled tokens stay on the device between steps and reach the host once,
 at the end of ``generate``.  Temperature sampling draws from one
 ``torch.Generator`` seeded with ``seed`` on the engine's device; only
-greedy decoding is held to the reference.  The reference's
-``generate(extras=...)`` (media or frame embeddings added to the prefill
-batch) is not ported, and neither engine's ``run`` takes media: the
-cross-attention and encoder-decoder models run through
-:func:`repro_torch.models.prefill` and
-:func:`repro_torch.models.decode_step` with ``batch["media"]`` or
-``batch["frames"]``.
+greedy decoding is held to the reference.  ``generate(extras=...)``
+and ``prefill(extras=...)`` add media or frame embeddings to the prefill
+batch, as the reference's ``generate(extras=...)`` does, so the
+cross-attention and encoder-decoder models generate here too; neither
+engine's ``run`` takes media, in either package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -69,10 +67,14 @@ class ServeEngine:
         self.max_len = max_len
         self.prefill_pad = prefill_pad
 
-    def prefill(self, tokens: np.ndarray
+    def prefill(self, tokens: np.ndarray, extras: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, List[dict]]:
         """Prefill a (B, S) prompt batch into a fresh cache; returns the
-        (B, V) logits of each prompt's last token and the cache."""
+        (B, V) logits of each prompt's last token and the cache.
+        ``extras`` adds entries to the prefill batch: ``"media"`` (B, M,
+        D) for a cross-attention model, ``"frames"`` (B, F, D) for an
+        encoder-decoder (numpy arrays or tensors, moved to the engine's
+        device)."""
         B, S = tokens.shape
         if self.prefill_pad:
             toks = np.pad(tokens, ((0, 0), (0, self.max_len - S)))
@@ -81,6 +83,8 @@ class ServeEngine:
             toks, last_pos = tokens, None
         batch = {"tokens": torch.tensor(np.asarray(toks, np.int32),
                                         device=self.device)}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)
         logits, cache = prefill(self.cfg, self.params, batch,
                                 max_len=self.max_len, last_pos=last_pos)
         return logits[:, -1], cache
@@ -93,9 +97,11 @@ class ServeEngine:
         return logits[:, -1]
 
     def generate(self, tokens: np.ndarray, *, n_steps: int = 32,
-                 temperature: float = 0.0, seed: int = 0) -> GenerateResult:
-        """tokens: (B, S) int32 prompt batch -> greedy/temperature decode.
-        Raises ``ValueError`` when S + n_steps exceeds ``max_len``."""
+                 temperature: float = 0.0, seed: int = 0,
+                 extras: Optional[Dict] = None) -> GenerateResult:
+        """tokens: (B, S) int32 prompt batch -> greedy/temperature decode;
+        ``extras`` as in :meth:`prefill`.  Raises ``ValueError`` when
+        S + n_steps exceeds ``max_len``."""
         tokens = np.asarray(tokens, np.int32)
         B, S = tokens.shape
         if S + n_steps > self.max_len:
@@ -104,7 +110,7 @@ class ServeEngine:
                 f"n_steps {n_steps} = {S + n_steps} exceeds this engine's "
                 f"max_len bucket of {self.max_len} (build a ServeEngine "
                 f"with max_len >= {S + n_steps} or shorten the request)")
-        logits, cache = self.prefill(tokens)
+        logits, cache = self.prefill(tokens, extras)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         tok = sample(logits, temperature, gen)[:, None]

@@ -25,10 +25,12 @@ from repro.models import init_params as jax_init_params
 from repro.models.model import decode_step as jax_decode_step
 from repro.models.model import forward as jax_forward
 from repro.models.model import prefill as jax_prefill
+from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro_torch.configs import get_config
 from repro_torch.convert import convert_cache, convert_params
 from repro_torch.models import decode_step, forward, prefill
 from repro_torch.models.layers import DTYPES
+from repro_torch.serve import ServeEngine
 
 # forward, prefill and decode_step against the reference: float32 rtol
 # 1e-5, bfloat16 rtol 2e-2 (a couple of bf16 ulps), both with an absolute
@@ -166,3 +168,19 @@ def greedy_streams(arch, n_steps=8, *, B=2, S=13, max_len=24, seed=6):
         jl, jc = jstep(jc, jtok, jnp.int32(S + i))
         tl, tc = decode_step(cfg, params, tc, ttok, S + i)
     return np.concatenate(jt, 1), np.concatenate(tt, 1)
+
+
+def engine_streams(arch, n_steps=8, *, B=2, S=13, max_len=24, seed=6):
+    """``ServeEngine.generate(extras=...)`` on both sides in float32, the
+    media or frames passed as extras, the port on its kernel path:
+    (reference tokens, port tokens), each (B, n_steps)."""
+    jcfg, jparams, cfg, params = models(arch)
+    cfg = dataclasses.replace(cfg, use_kernels=True)
+    jb, tb = batches(cfg, B, S, seed)
+    toks = np.asarray(jb.pop("tokens"))
+    tb.pop("tokens")
+    ref = JaxServeEngine(jcfg, jparams, max_len=max_len).generate(
+        toks, n_steps=n_steps, extras=jb)
+    got = ServeEngine(cfg, params, max_len=max_len, device="cpu").generate(
+        toks, n_steps=n_steps, extras=tb)
+    return ref.tokens, got.tokens

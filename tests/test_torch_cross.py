@@ -36,8 +36,8 @@ from repro_torch.models import blocks, decode_step, forward, init_cache, \
     prefill
 
 from _torch_catalog import (CASE_IDS, CASES, RTOL, batches, check_forward,
-                            check_prefill_decode, close, greedy_streams,
-                            models)
+                            check_prefill_decode, close, engine_streams,
+                            greedy_streams, models)
 
 ARCH = "llama-3.2-vision-90b"
 PREFILL = {"flash_attention": True}
@@ -193,4 +193,12 @@ def test_convert_carries_the_gates():
 
 def test_greedy_loop_matches_reference():
     ref, got = greedy_streams(ARCH)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_engine_generate_with_media_matches_reference():
+    """``ServeEngine.generate(extras={"media": ...})``, greedy, in
+    float32: the same stream as the reference engine's."""
+    ref, got = engine_streams(ARCH)
+    assert got.shape == ref.shape == (2, 8)
     np.testing.assert_array_equal(got, ref)

@@ -804,3 +804,147 @@ def test_moe_gmm_at_64_experts(cuda, C, K, N, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                moe_gmm_plain(x, w).float().cpu().numpy(),
                                rtol=rtol, atol=atol)
+
+
+# -- training (the plain path on the card) ----------------------------------
+
+def _train_state(cfg, device):
+    from repro_torch.train import init_opt_state
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = _to(params, device)
+    return params, init_opt_state(params)
+
+
+def _to(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def _train_batch(cfg):
+    from repro_torch.data import SyntheticLM
+    return {k: torch.from_numpy(v) for k, v in
+            SyntheticLM(cfg.vocab_size, batch=4, seq_len=64, seed=0)(0)
+            .items()}
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One float32 step of reduced qwen2-7b (2 microbatches) on the card
+    and on the CPU from the same weights and batch: metrics to rtol 1e-4,
+    parameters to the train step's tolerance (rtol 5e-3, atol 2e-3)."""
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
+                              dtype="float32", use_kernels=False,
+                              microbatches=2)
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1))
+    batch = _train_batch(cfg)
+    want = step(*_train_state(cfg, "cpu"), batch)
+    got = step(*_train_state(cfg, cuda), _to(batch, cuda))
+    for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(got[2][k]), float(want[2][k]),
+                                   rtol=1e-4, atol=1e-12, err_msg=k)
+    for a, b in zip(leaves(got[0]), leaves(want[0])):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        torch.testing.assert_close(a.cpu(), b, rtol=5e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_bf16_gradient_on_the_card_matches_the_cpu(cuda):
+    """The bf16 gradient of reduced qwen2-7b on the card (its f32-output
+    products through ``layers._MmF32``) lies no further from the CPU's
+    float32 gradient of the same weights than 1.5x the CPU's own bf16
+    gradient does (the CPU upcasts bf16 products; the card rounds their
+    gradients' operands to bf16)."""
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
+                              use_kernels=False)
+    params, _ = _train_state(cfg, "cpu")
+    batch = _train_batch(cfg)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _, m32, g32 = loss_and_grads(cfg32, tree_map(lambda t: t.float(), params),
+                                 batch)
+    _, m_cpu, g_cpu = loss_and_grads(cfg, params, batch)
+    _, m_card, g_card = loss_and_grads(cfg, _to(params, cuda),
+                                       _to(batch, cuda))
+
+    def dist(g):
+        num = sum(float((a.cpu().float() - b).square().sum())
+                  for a, b in zip(leaves(g), leaves(g32)))
+        return math.sqrt(num / sum(float(b.square().sum())
+                                   for b in leaves(g32)))
+    yardstick, card = dist(g_cpu), dist(g_card)
+    print(f"bf16 gradient vs float32: card {card:.5f}, CPU {yardstick:.5f}")
+    assert all(g.device.type == "cuda" and g.dtype == torch.bfloat16
+               for g in leaves(g_card))
+    assert 0.0 < card <= 1.5 * yardstick
+    np.testing.assert_allclose(float(m_card["ce"]), float(m32["ce"]),
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_mm_f32_output_backward_on_the_card(cuda):
+    """The bf16 product with an f32 output differentiates: its gradients
+    are the products of the output gradient, rounded to bf16 once, with
+    the other operand, each rounded once (one bf16 ulp)."""
+    from repro_torch.models.layers import mm
+    g = torch.Generator().manual_seed(1)
+    a = torch.randn((3, 64, 128), generator=g).to(torch.bfloat16).to(cuda)
+    b = torch.randn((128, 96), generator=g).to(torch.bfloat16).to(cuda)
+    a.requires_grad_()
+    b.requires_grad_()
+    y = mm(a, b)
+    assert y.dtype == torch.float32 and y.shape == (3, 64, 96)
+    dy = torch.randn(y.shape, generator=g).to(cuda)
+    ga, gb = torch.autograd.grad(y, (a, b), dy)
+    d16 = dy.to(torch.bfloat16).float()
+    want_a = (d16 @ b.float().t()).to(torch.bfloat16)
+    want_b = (a.detach().float().reshape(-1, 128).t()
+              @ d16.reshape(-1, 96)).to(torch.bfloat16)
+    for got, want in ((ga, want_a), (gb, want_b)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                                   atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
+    """Every wrapper raises before launching when a CUDA operand requires
+    grad under grad mode."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g).to(dtype).to(cuda)
+
+    lens = torch.tensor([16], dtype=torch.int32, device=cuda)
+    table = torch.tensor([[1, 0]], dtype=torch.int32, device=cuda)
+    calls = {
+        "flash_attention": (flash_attention, (r(1, 16, 4, 64),
+                                              r(1, 16, 2, 64),
+                                              r(1, 16, 2, 64))),
+        "decode_attention": (decode_attention, (r(1, 4, 64),
+                                                r(1, 16, 2, 64),
+                                                r(1, 16, 2, 64), 16)),
+        "paged_decode_attention": (paged_decode_attention,
+                                   (r(1, 4, 64), r(2, 16, 2, 64),
+                                    r(2, 16, 2, 64), table, lens)),
+        "moe_gmm": (moe_gmm, (r(2, 16, 64), r(2, 64, 64))),
+        "mamba2_ssd": (mamba2_ssd, (r(1, 64, 2, 64),
+                                    r(1, 64, 2, dtype=torch.float32).abs(),
+                                    -r(2, dtype=torch.float32).abs(),
+                                    r(1, 64, 1, 64), r(1, 64, 1, 64))),
+        "mfma_gemm": (mfma_gemm, (r(64, 64), r(64, 64),
+                                  r(64, 64, dtype=torch.float32))),
+    }
+    reset_launch_counts()
+    for name, (fn, args) in calls.items():
+        x = args[0].detach().requires_grad_()
+        with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
+            fn(x, *args[1:])
+    assert not any(launch_counts().values())
+    for name, (fn, args) in calls.items():
+        with torch.no_grad():
+            fn(args[0].detach().requires_grad_(), *args[1:])
+    torch.cuda.synchronize()
+    assert all(launch_counts()[name] == 1 for name in calls)

@@ -32,8 +32,8 @@ from repro_torch.models import forward, init_params, paged_decode_step, \
     prefill
 
 from _torch_catalog import (CASE_IDS, CASES, RTOL, batches, check_forward,
-                            check_prefill_decode, close, greedy_streams,
-                            models)
+                            check_prefill_decode, close, engine_streams,
+                            greedy_streams, models)
 
 ARCH = "whisper-base"
 PREFILL = {"flash_attention": True}
@@ -131,6 +131,14 @@ def test_kernel_calls_per_layer(monkeypatch):
 
 def test_greedy_loop_matches_reference():
     ref, got = greedy_streams(ARCH)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_engine_generate_with_frames_matches_reference():
+    """``ServeEngine.generate(extras={"frames": ...})``, greedy, in
+    float32: the same stream as the reference engine's."""
+    ref, got = engine_streams(ARCH)
+    assert got.shape == ref.shape == (2, 8)
     np.testing.assert_array_equal(got, ref)
 
 

@@ -1,6 +1,7 @@
 """Import guard: the port and chip_smoke.py never load jax or the
 reference package, and entry points never fall back to the CPU."""
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -153,3 +154,53 @@ def test_mfma_entry_points_default_to_cuda(monkeypatch):
         random_operands("fp32_16x16x4fp32")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         mfma_apply("fp32_16x16x4fp32", a.numpy(), b.numpy(), c.numpy())
+
+
+_EXAMPLE_PROBE = r"""
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+spec = importlib.util.spec_from_file_location(
+    "torch_train_lm", sys.argv[1] + "/examples/torch_train_lm.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"leaked": leaked, "main": callable(mod.main)}))
+"""
+
+
+def test_training_modules_and_example_import_clean():
+    """The training slice's modules are part of the walk above, and the
+    training example loads neither jax nor the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    for mod in ("repro_torch.train", "repro_torch.train.optim",
+                "repro_torch.train.step", "repro_torch.train.checkpoint",
+                "repro_torch.train.fault_tolerance",
+                "repro_torch.tree", "repro_torch.data",
+                "repro_torch.data.pipeline"):
+        assert mod in got["modules"]
+    out = subprocess.run([sys.executable, "-c", _EXAMPLE_PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "main": True}
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.data import prefetch_to_device
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", ROOT / "examples" / "torch_train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prefetch_to_device(iter(()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        example.train("smoke", steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        example.main(["--steps", "1"])
