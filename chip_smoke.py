@@ -165,6 +165,21 @@ depends on it, so that one run reports every such failure):
     step 15: one restart, and the final parameters within 1e-2 relative
     norm of an uninterrupted run's (the embedding backward's atomics
     make runs on the card differ in their last bits).
+21. the paper's timing model and its Listing-1 microbenchmark on the
+    card (``repro_torch.core``, ``kernels/listing1.py``): (a) Tables
+    II-V's Expected column from ``latency_table`` on mi200 and mi300 for
+    N in 2..5 exactly, and Table VI (``scale_table`` at --mfma-scale 2
+    doubles every mi300 latency); (b) ``csrc/listing1.cu``, one warp
+    reading ``%clock64`` around N dependent ``mma.sync`` (f64 m8n8k4,
+    tf32 m16n8k8, f16 and bf16 m16n8k16, s8 m16n8k32), 50 launches of
+    each variant at N in 0..5, counted (N = 0 measures the probe
+    overhead, N = 1 one mma's issue), D equal to the plain version
+    C + N A B exactly in every launch (integer-valued operands); (c)
+    the median T_total positive and strictly increasing in N, and,
+    recorded without a limit, Eq. 1 through the port's ``eq1_latency``
+    (t_memtime the overhead, t_inst 0, and again with t_inst the issue)
+    beside a least-squares slope over N and the spread across N.  The
+    cycles stay out of the H100's cycle table.
 
 Each phase prints its wall time.  The last three lines are the card's
 name and power limit, a JSON record of every kernel (with its timed
@@ -265,6 +280,21 @@ CE_REL_TOL = 1e-2       # bf16 CE against float32's
 # the controller on the training example's smoke preset
 CONTROLLER = dict(preset="smoke", steps=30, ckpt_every=10, fail_at=15,
                   rel_tol=1e-2)
+# the paper's Tables II-V, Expected column (cycles), for N in 2..5
+PAPER_EXPECTED = {
+    "mi200": {"fp64_16x16x4fp64": 32, "fp32_4x4x1fp32": 8,
+              "fp32_16x16x4fp32": 32, "fp32_16x16x16fp16": 32,
+              "i32_16x16x16i8": 32, "fp64_4x4x4fp64": 16,
+              "fp32_4x4x4fp16": 8},
+    "mi300": {"fp64_16x16x4fp64": 32, "fp32_4x4x1fp32": 8,
+              "fp32_16x16x4fp32": 32, "fp32_16x16x16fp16": 16,
+              "fp64_4x4x4fp64": 16, "fp32_4x4x4fp16": 8},
+}
+# the Listing-1 probe: chain lengths (0: the probe overhead; 1: one mma's
+# issue), the launches whose median is read, and the variant and N of
+# the kernels line's record
+LISTING1 = dict(ns=(0, 1, 2, 3, 4, 5), launches=50, seed=21,
+                record=("f16", 5))
 
 
 class Failure(Exception):
@@ -2548,6 +2578,142 @@ def phase_train(torch):
           f"{c['rel_tol']}")
 
 
+# -- phase 21: the paper's timing model and the Listing-1 probe ----------------
+
+def phase_timing_model(torch):
+    """(a) Tables II-VI from the port's timing model on the card's host;
+    (b) every Listing-1 variant's stream on the card, counted, its D held
+    to the plain version exactly; (c) T_total rising in N, Eq. 1 read
+    through the port's ``eq1_latency``.  Returns the probe's record."""
+    from repro_torch.core.machine import get_machine
+    from repro_torch.core.microbench import latency_table
+    from repro_torch.core.whatif import scale_table
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    # the module: the package re-exports its wrapper under its name
+    probe = importlib.import_module("repro_torch.kernels.listing1")
+    t0 = time.perf_counter()
+    # (a)
+    for gpu, expected in PAPER_EXPECTED.items():
+        got = latency_table(get_machine(gpu))
+        want = {name: {n: float(c) for n in (2, 3, 4, 5)}
+                for name, c in expected.items()}
+        check(got == want, f"phase 21: {gpu}'s Listing-1 table {got} is "
+              f"not the paper's Expected column {want}")
+    t6 = scale_table(get_machine("mi300"), scales=(1.0, 2.0))
+    check(len(t6) == len(PAPER_EXPECTED["mi300"]) and all(
+        v[2.0] == 2 * v[1.0] for v in t6.values()),
+        f"phase 21: Table VI (mi300, --mfma-scale 2) does not double: {t6}")
+    print(f"phase 21 (a): Tables II-V (mi200 {len(PAPER_EXPECTED['mi200'])}, "
+          f"mi300 {len(PAPER_EXPECTED['mi300'])} instructions, N 2..5) equal "
+          "the Expected column; Table VI doubles every mi300 latency")
+
+    # (b) the main path: every variant at every N, counted
+    ns, launches = LISTING1["ns"], LISTING1["launches"]
+    reset_launch_counts()
+    medians, spans = {}, {}
+    for kind in probe.KINDS:
+        medians[kind] = {}
+        for n in ns:
+            med, totals, ds, want = probe.stream_cycles(
+                kind, n, launches=launches, seed=LISTING1["seed"] + n)
+            bad = int((ds != want).flatten(1).any(1).sum())
+            check(bad == 0, f"listing1 {kind} N={n}: D differs from the "
+                  f"plain version in {bad} of {launches} launches")
+            medians[kind][n] = med
+            spans[(kind, n)] = (min(totals), max(totals))
+    counts = dict(launch_counts())
+    want_launches = len(probe.KINDS) * len(ns) * launches
+    check(counts["listing1"] == want_launches, f"listing1 launched "
+          f"{counts['listing1']} times for {want_launches} streams")
+    check(all(v == 0 for k, v in counts.items() if k != "listing1"),
+          f"the probe launched other kernels: {counts}")
+    print(f"phase 21 (b): {want_launches} launches ({len(probe.KINDS)} "
+          f"variants x N in {list(ns)} x {launches}); D equal to the plain "
+          "version in every launch")
+
+    # (c)
+    cycles = {}
+    for kind, med in medians.items():
+        check(med[ns[0]] > 0 and all(med[a] < med[b] for a, b in
+                                     zip(ns, ns[1:])),
+              f"listing1 {kind}: T_total {med} is not positive and "
+              "strictly increasing in N")
+        eq1 = probe.eq1_cycles(med)
+        issue = med[1] - med[0]
+        eq1_issue = probe.eq1_cycles(med, t_inst=issue)
+        slope = probe.least_squares_slope(med)
+        vals = [eq1[n] for n in (2, 3, 4, 5)]
+        spread = (max(vals) - min(vals)) / (sum(vals) / len(vals))
+        cycles[kind] = {"ptx": probe.KINDS[kind].ptx, "t_total": med,
+                        "overhead": med[0], "issue": issue, "eq1": eq1,
+                        "eq1_t_inst_issue": eq1_issue, "slope": slope,
+                        "spread": spread}
+        print(f"listing1 {kind} ({probe.KINDS[kind].ptx}): median T_total "
+              f"{med} cycles (min..max over {launches} launches: "
+              f"{ {n: spans[(kind, n)] for n in ns} }); overhead (N = 0) "
+              f"{med[0]}, one mma's issue (N = 1 less N = 0) {issue}; Eq. 1 "
+              f"(t_memtime {med[0]}, t_inst 0) {eq1}, spread across N "
+              f"{spread:.2%}; least-squares slope {slope:.3f} cycles/mma; "
+              f"Eq. 1 with t_inst {issue}: {eq1_issue}")
+
+    # the record: one variant timed beside its plain version, the library
+    # call and the bound (a latency probe: the bound is nanoseconds)
+    kind, n = LISTING1["record"]
+    a, b, c = probe.operands(kind, seed=LISTING1["seed"])
+    want = probe.listing1_plain(a, b, c, n)
+    got, _ = probe.listing1(a, b, c, n)
+    torch.cuda.synchronize()
+    max_abs_err = float((got.double() - want.double()).abs().max())
+    check(max_abs_err == 0.0, f"listing1 {kind} N={n}: max abs err "
+          f"{max_abs_err} against the plain version")
+
+    def nothing():
+        return None
+    ms = time_ms(torch, lambda: probe.listing1(a, b, c, n), 200, nothing)
+    plain_ms = time_ms(torch, lambda: probe.listing1_plain(a, b, c, n), 200,
+                       nothing)
+    library_ms, library = None, f"torch.addmm(c, a, b, alpha={n}, " \
+        "out_dtype=float32)"
+    try:
+        lib = torch.addmm(c, a, b, alpha=n, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        library_ms = time_ms(torch, lambda: torch.addmm(
+            c, a, b, alpha=n, out_dtype=torch.float32), 200, nothing)
+        library += f" (max abs err vs plain {float((lib - want).abs().max())})"
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        first = (str(e).splitlines() or [""])[0][:200]
+        library += f" is not available here ({type(e).__name__}: {first})"
+    dev_ms = device_ms(torch, lambda: probe.listing1(a, b, c, n), 50,
+                       nothing)
+    spec = probe.KINDS[kind]
+    nbytes = sum(t.numel() * t.element_size() for t in (a, b, c, want)) \
+        + 2 * 8
+    flops = n * 2 * spec.m * spec.n * spec.k
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"listing1 record ({kind}, N={n}): launch {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, {library}: "
+          + ("not measured" if library_ms is None else f"{library_ms:.4f} ms")
+          + f"; bound {bound_ms:.3e} ms ({bound_by}: {nbytes} bytes, {flops} "
+          f"flops); the launch's device time "
+          + ("not measured" if dev_ms is None else f"{dev_ms:.5f} ms")
+          + " (profiler): the event time is the host's launch")
+    print(f"listing1 cycles: {json.dumps(cycles)}")
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    return {"name": "listing1", "route": "cuda",
+            "source": "src/repro_torch/csrc/listing1.cu",
+            "replaces": "src/repro/core/microbench.py:41",
+            "launches": counts["listing1"],
+            "launches_by_phase": {"21 listing1": counts["listing1"]},
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "device_ms": dev_ms,
+            "shapes": [{"shape": f"{kind} {spec.ptx} N={n}", "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library_ms,
+                        "max_abs_err": max_abs_err}],
+            "cycles": cycles}
+
+
 def draw_params(torch, cfg, seed: int, what: str):
     from repro_torch.models import init_params
     t0 = time.perf_counter()
@@ -2703,6 +2869,8 @@ def main() -> int:
         lap("phase 19 (whisper-base)")
         phase_train(torch)
         lap("phase 20 (training)")
+        listing1 = phase_timing_model(torch)
+        lap("phase 21 (the timing model and the Listing-1 probe)")
         for rec in records.values():
             rec["launches"] = sum(rec["launches_by_phase"].values())
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [
@@ -2713,7 +2881,8 @@ def main() -> int:
         return 1
     print(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [paged, flash, decode, moe, ssd, gemm]}))
+    print(json.dumps({"kernels": [paged, flash, decode, moe, ssd, gemm,
+                                  listing1]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

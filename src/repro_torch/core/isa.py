@@ -11,10 +11,16 @@ The registry holds the reference's 17 instructions: the 7 the paper
 validates (Tables II-V) and 10 that follow the ISA manual's pattern,
 with the ``s_set_gpr_idx`` addressing-mode flag of Section VI.
 
-Left out until the perf front-end is ported (ROADMAP queue 1): the
-cycle tables (``MI200_CYCLES``, ``MI300_CYCLES``) and the
-``mfma_cycles`` / ``supported_instructions`` lookups, which in the
-reference are views over its device registry's timing tables.
+**Timing lives in** :mod:`repro_torch.arch`: per-device cycle tables
+(the paper's ``mfma_cycles`` lookup in gem5's
+``src/gpu-compute/compute_unit.cc``) are rows of each
+:class:`repro_torch.arch.DeviceSpec` in the device registry, where
+cross-checked entries carry ``validated=True`` (Tables II-V "Expected"
+column) and ISA-manual-pattern extensions ``validated=False``.  The
+module-level ``MI200_CYCLES`` / ``MI300_CYCLES`` dicts and the
+``mfma_cycles`` / ``supported_instructions`` functions here are views
+over that registry, resolved lazily so that importing this module never
+imports the arch package.
 """
 
 from __future__ import annotations
@@ -26,7 +32,11 @@ __all__ = [
     "MFMAInstr",
     "UnsupportedInstructionError",
     "MFMA_REGISTRY",
+    "MI200_CYCLES",
+    "MI300_CYCLES",
+    "mfma_cycles",
     "lookup",
+    "supported_instructions",
     "flops_per_instr",
 ]
 
@@ -38,7 +48,9 @@ class UnsupportedInstructionError(KeyError):
     ``s_set_gpr_idx`` addressing mode (e.g. ``fp32_32x32x8fp16`` and
     ``fp32_32x32x1fp32``) are unsupported in gem5's timing model, and some
     instructions (e.g. ``i32_16x16x16i8``) were removed on MI300.  Also
-    raised for unknown instruction names.
+    raised for unknown instruction names, and for unknown device names
+    (consistently across ``mfma_cycles`` *and*
+    ``supported_instructions``).
     """
 
 
@@ -118,5 +130,58 @@ def lookup(name: str) -> MFMAInstr:
         raise UnsupportedInstructionError(f"unknown MFMA instruction {name!r}") from e
 
 
+def _spec(gpu: str):
+    """Resolve a device name against the registry with this module's
+    documented error contract (UnsupportedInstructionError throughout)."""
+    # Lazy import: repro_torch.arch lazily imports this module for
+    # instruction metadata; resolving at call time keeps the layering
+    # acyclic.
+    from repro_torch.arch import registry
+    try:
+        return registry.get_device(gpu)
+    except registry.UnknownDeviceError as e:
+        raise UnsupportedInstructionError(
+            f"unknown GPU model {gpu!r}") from e
+
+
+def mfma_cycles(gpu: str, name: str, *, mfma_scale: float = 1.0,
+                allow_gpr_idx: bool = False) -> int:
+    """Latency in cycles of ``name`` on ``gpu`` — the mfma_cycles table.
+
+    ``mfma_scale`` is the paper's ``--mfma-scale`` what-if parameter: the
+    default latency is multiplied and rounded, exactly as in gem5.
+
+    Thin view over ``repro_torch.arch``: equivalent to
+    ``get_device(gpu).mfma_cycles(name, ...)``.
+    """
+    return _spec(gpu).mfma_cycles(name, mfma_scale=mfma_scale,
+                                  allow_gpr_idx=allow_gpr_idx)
+
+
+def supported_instructions(gpu: str, *, validated_only: bool = False):
+    """Instruction names ``gpu`` implements (timing-model-supported only).
+
+    Raises :class:`UnsupportedInstructionError` for unknown device names —
+    the same contract as :func:`mfma_cycles`.
+    """
+    return _spec(gpu).supported_instructions(validated_only=validated_only)
+
+
 def flops_per_instr(name: str) -> int:
     return lookup(name).flops
+
+
+def _legacy_table(gpu: str) -> Dict[str, Tuple[int, bool]]:
+    return {name: (e.cycles, e.validated)
+            for name, e in _spec(gpu).cycle_table.items()}
+
+
+def __getattr__(name: str):
+    # Views of the timing data in repro_torch.arch.registry, materialised
+    # lazily (PEP 562) so importing this module never pulls the arch
+    # package in at import time.
+    if name == "MI200_CYCLES":
+        return _legacy_table("mi200")
+    if name == "MI300_CYCLES":
+        return _legacy_table("mi300")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,11 +1,14 @@
 """The port's device-capability layer: the ``DeviceSpec`` schema equals
-the reference's field for field (names, types and defaults), and the
-catalog's one device, the H100, holds NVIDIA's data-sheet figures."""
+the reference's field for field (names, types and defaults), the
+reference's five devices equal its own, and the H100 holds NVIDIA's
+data-sheet figures."""
 
 import dataclasses
 
 import pytest
 
+from repro.arch import get_device as ref_get_device
+from repro.arch import list_devices as ref_list_devices
 from repro.arch import spec as ref_spec
 from repro_torch.arch import (CycleEntry, DeviceSpec, Interconnect,
                               MemoryHierarchy, UnknownDeviceError,
@@ -53,7 +56,8 @@ def test_helpers_equal_reference():
 
 def test_h100_figures():
     h = get_device("H100")
-    assert list(list_devices()) == ["h100"]
+    assert list(list_devices()) == ["h100", "mi200", "mi300", "mi300x",
+                                    "tpu_v5e", "tpu_v5p"]
     assert (h.cu_count, h.simd_per_cu, h.mce_per_simd) == (132, 4, 1)
     assert h.wavefront_size == 32
     assert h.memory.hbm_bw == 3.35e12
@@ -78,8 +82,10 @@ def test_h100_has_no_mfma_timing():
 
 
 def test_registry_contract():
-    with pytest.raises(UnknownDeviceError, match="registered: \\['h100'\\]"):
-        get_device("mi200")
+    with pytest.raises(UnknownDeviceError,
+                       match="registered: \\['h100', 'mi200', 'mi300', "
+                             "'mi300x', 'tpu_v5e', 'tpu_v5p'\\]"):
+        get_device("no_such_gpu")
     assert issubclass(UnknownDeviceError, KeyError)
     with pytest.raises(ValueError, match="already registered"):
         register_device(get_device("h100"))
@@ -97,3 +103,34 @@ def test_derive_marks_inherited_entries_unvalidated():
     assert d.interconnect == Interconnect(links=2)
     assert d.cu_count == 8 and d.mfma_cycles("fp32_16x16x4fp32",
                                              mfma_scale=1.5) == 48
+
+
+@pytest.mark.parametrize("name", list(ref_list_devices()))
+def test_reference_device_equals_reference(name):
+    """Each of the reference's five devices, field for field (its cycle
+    table with every entry's provenance included)."""
+    assert dataclasses.asdict(get_device(name)) == \
+        dataclasses.asdict(ref_get_device(name))
+    assert get_device(name).peak_flops_effective == \
+        ref_get_device(name).peak_flops_effective
+
+
+def test_every_registered_spec_is_valid():
+    """The reference's rule, has_cycle_table or mxu_count > 0, holds for
+    its five devices; the H100 is the one exception, its peak from the
+    data sheet's peak_flops."""
+    for name in list_devices():
+        spec = get_device(name)
+        assert isinstance(spec, DeviceSpec)
+        assert spec.clock_mhz > 0
+        assert spec.cu_count >= 1 and spec.simd_per_cu >= 1
+        if name == "h100":
+            assert not spec.has_cycle_table and spec.mxu_count == 0
+            assert spec.peak_flops > 0
+        else:
+            assert spec.has_cycle_table or spec.mxu_count > 0
+        for instr, entry in spec.cycle_table.items():
+            from repro_torch.core import isa
+            assert instr in isa.MFMA_REGISTRY, (name, instr)
+            assert entry.cycles >= 1
+            assert isinstance(entry.validated, bool)

@@ -28,10 +28,12 @@ plus rtol 1e-4 in both.  The MFMA GEMM, by C's dtype: float32 atol 1e-3
 plus rtol 1e-4 (the same exact products summed over up to 1032 terms in
 another order, and on the tensor cores with their own f32 accumulation
 rounding), bfloat16 atol 1e-2 plus rtol 2**-7 and float16 atol 1e-3 plus
-rtol 2**-10 (one ulp of C's dtype: both round one f32 sum once).
+rtol 2**-10 (one ulp of C's dtype: both round one f32 sum once).  The
+Listing-1 probe: exact (integer-valued operands make every sum exact).
 """
 
 import dataclasses
+import importlib
 import math
 import os
 
@@ -936,6 +938,8 @@ def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
                                     r(1, 64, 1, 64), r(1, 64, 1, 64))),
         "mfma_gemm": (mfma_gemm, (r(64, 64), r(64, 64),
                                   r(64, 64, dtype=torch.float32))),
+        "listing1": (LISTING1.listing1, (r(16, 16), r(16, 8),
+                                         r(16, 8, dtype=torch.float32), 2)),
     }
     reset_launch_counts()
     for name, (fn, args) in calls.items():
@@ -948,3 +952,38 @@ def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
             fn(args[0].detach().requires_grad_(), *args[1:])
     torch.cuda.synchronize()
     assert all(launch_counts()[name] == 1 for name in calls)
+
+
+LISTING1 = importlib.import_module("repro_torch.kernels.listing1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(LISTING1.KINDS))
+def test_listing1_chains_exactly_and_takes_longer_with_n(cuda, kind):
+    """Each variant at N = 2..5 (and the N = 0 overhead stream): D equals
+    the plain version exactly in every launch, and the median T_total
+    rises strictly with N."""
+    medians = {}
+    for n in (0, 2, 3, 4, 5):
+        med, totals, ds, want = LISTING1.stream_cycles(kind, n, launches=20,
+                                                       seed=n)
+        assert ds.dtype == want.dtype and ds.shape[1:] == want.shape
+        assert bool((ds == want).all()), (kind, n)
+        assert len(totals) == 20 and min(totals) > 0
+        medians[n] = med
+    ns = sorted(medians)
+    assert all(medians[a] < medians[b] for a, b in zip(ns, ns[1:])), medians
+
+
+@pytest.mark.cuda
+def test_listing1_wrapper_on_the_card(cuda):
+    """One launch through the public wrapper: D and two stamps on the
+    card, counted; a CUDA operand never takes the plain version."""
+    a, b, c = LISTING1.operands("bf16", seed=3)
+    reset_launch_counts()
+    d, stamps = LISTING1.listing1(a, b, c, 4)
+    torch.cuda.synchronize()
+    assert d.device.type == "cuda" and stamps.shape == (2,)
+    assert torch.equal(d, LISTING1.listing1_plain(a, b, c, 4))
+    assert LISTING1.t_total(stamps.cpu()) > 0
+    assert launch_counts()["listing1"] == 1

@@ -204,3 +204,69 @@ def test_training_entry_points_default_to_cuda(monkeypatch):
         example.train("smoke", steps=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         example.main(["--steps", "1"])
+
+
+TIMING_MODULES = ("repro_torch.arch.overlay", "repro_torch.arch.select",
+                  "repro_torch.arch.registry", "repro_torch.arch",
+                  "repro_torch.core.program", "repro_torch.core.machine",
+                  "repro_torch.core.scoreboard",
+                  "repro_torch.core.microbench", "repro_torch.core.whatif",
+                  "repro_torch.core.isa", "repro_torch.core")
+
+_FIRST_PROBE = r"""
+import importlib, json, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+import torch  # noqa: F401  (kept loaded; only the port is re-imported)
+ok = {}
+for name in sys.argv[2:]:
+    for m in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[m]
+    try:
+        importlib.import_module(name)
+        ok[name] = True
+    except Exception as e:  # an import cycle shows up here
+        ok[name] = f"{type(e).__name__}: {e}"
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"ok": ok, "leaked": leaked}))
+"""
+
+
+def test_timing_modules_import_clean_and_first():
+    """The timing model's and the probe's modules are part of the walk
+    above, and each one imports cleanly when it is the first of the
+    port imported (arch.spec, core.isa and core.machine import each
+    other lazily: a cycle would break one of these orders)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    for mod in TIMING_MODULES + ("repro_torch.kernels.listing1",):
+        assert mod in got["modules"]
+    names = TIMING_MODULES + ("repro_torch.arch.spec",
+                              "repro_torch.kernels.listing1",
+                              "repro_torch.kernels")
+    out = subprocess.run([sys.executable, "-c", _FIRST_PROBE, str(ROOT),
+                          *names], capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"ok": {n: True for n in names}, "leaked": []}
+
+
+def test_timing_modules_are_pure_python():
+    """The timing modules import neither torch nor jax themselves, as in
+    the reference; only the probe's wrapper imports torch."""
+    import ast
+    for name in TIMING_MODULES:
+        path = ROOT / "src" / (name.replace(".", "/") + (
+            "/__init__.py" if name.count(".") == 1 else ".py"))
+        imported = set()
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                imported |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                imported.add(node.module.split(".")[0])
+        assert not imported & {"torch", "jax", "jaxlib", "numpy", "repro"}, \
+            (name, imported)
