@@ -180,6 +180,21 @@ depends on it, so that one run reports every such failure):
     (t_memtime the overhead, t_inst 0, and again with t_inst the issue)
     beside a least-squares slope over N and the spread across N.  The
     cycles stay out of the H100's cycle table.
+22. the paper's performance pipeline over the port's own model
+    (``repro_torch.perf``; no weights, no kernel): (a) ``capture``
+    records full-width (28-layer) qwen2-7b's plain-path graphs of phase
+    6's two steps on the meta device, the sync prefill of 2048 rows at
+    B = 1 and the decode step at B = 4, position 1024, and their dot
+    FLOPs must equal the closed form of ``qwen_step_flops`` exactly; (b)
+    ``predict(graph, device="h100", engine="roofline")`` (kernel
+    adjusted) beside phase 6's profiled device time of the same step on
+    the kernel path and their ratio: each measured time must be at least
+    its roofline; (c) ``workload_grid(graph, "mi300x",
+    mfma_scale=(0.5, 1, 2))`` through the ``mfma`` engine, whose time
+    must double exactly from scale 1 to 2, ``sweep`` over the
+    reference's five devices x roofline/mfma/scoreboard printed with
+    ``format_reports``, and the ``mfma`` and ``scoreboard`` engines on
+    ``h100`` must raise; (d) the phase's wall time (under 30 s).
 
 Each phase prints its wall time.  The last three lines are the card's
 name and power limit, a JSON record of every kernel (with its timed
@@ -295,6 +310,14 @@ PAPER_EXPECTED = {
 # the kernels line's record
 LISTING1 = dict(ns=(0, 1, 2, 3, 4, 5), launches=50, seed=21,
                 record=("f16", 5))
+# the perf pipeline's graphs: phase 6's sync prefill (B x S rows into a
+# cache of max_len) and its decode step (B requests at position pos)
+PERF = dict(prefill=dict(B=1, S=SYNC["max_len"], max_len=SYNC["max_len"]),
+            decode=dict(B=SYNC["batch"], pos=SYNC["batch_len"],
+                        max_len=SYNC["max_len"]),
+            grid_device="mi300x", scales=(0.5, 1, 2),
+            devices=("mi200", "mi300", "mi300x", "tpu_v5e", "tpu_v5p"),
+            engines=("roofline", "mfma", "scoreboard"), max_s=30.0)
 
 
 class Failure(Exception):
@@ -1023,7 +1046,9 @@ def profile(torch, label: str, fn, n_wall: int = 5, parts=None):
     a synchronize, no profiler attached) against the device time of its
     kernels in one profiled call: the share of a step the card is busy.
     ``parts`` maps a name to the CUDA kernels (substrings of their names)
-    that make it up; each part's device time and share is printed."""
+    that make it up; each part's device time and share is printed.
+    Returns ``{"wall_ms", "device_ms"}`` (``device_ms`` None when the
+    profiler recorded no kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     fn()
@@ -1044,7 +1069,7 @@ def profile(torch, label: str, fn, n_wall: int = 5, parts=None):
     if dev <= 0:
         print(f"{label}: wall {wall:.3f} ms, device time not measured "
               "(the profiler recorded no kernels)")
-        return
+        return {"wall_ms": wall, "device_ms": None}
     print(f"{label}: wall {wall:.3f} ms, device kernels {dev:.3f} ms in "
           f"{sum(e.count for e in kernels)} launches (busy "
           f"{100 * dev / wall:.1f}%, idle {100 - 100 * dev / wall:.1f}%)")
@@ -1057,6 +1082,7 @@ def profile(torch, label: str, fn, n_wall: int = 5, parts=None):
         print(f"  {name}: {t:.4f} ms of device time in "
               f"{sum(e.count for e in mine)} kernels "
               f"({100 * t / dev:.1f}% of the step's)")
+    return {"wall_ms": wall, "device_ms": dev}
 
 
 def phase_profile(torch, cfg, params, reqs):
@@ -1074,20 +1100,31 @@ def phase_profile(torch, cfg, params, reqs):
 
 
 def phase_sync_profile(torch, cfg, params):
+    """Profiles the sync prefill and decode step on the kernel path;
+    returns their readings (``profile``'s), which phase 22 prices."""
     import numpy as np
     from repro_torch.serve import ServeEngine
     eng = ServeEngine(cfg, params, max_len=SYNC["max_len"], device="cuda")
     rng = np.random.default_rng(SYNC["seed"] + 1)
     prompt = rng.integers(0, cfg.vocab_size, (1, SYNC["max_len"])
                           ).astype(np.int32)
-    profile(torch, f"sync prefill ({SYNC['max_len']} rows)",
-            lambda: eng.prefill(prompt)[0].argmax(-1).cpu())
+    out = {"prefill": profile(
+        torch, f"sync prefill ({SYNC['max_len']} rows)",
+        lambda: eng.prefill(prompt)[0].argmax(-1).cpu())}
     _, batch = sync_workload(cfg.vocab_size)
     logits, cache = eng.prefill(batch)
     tok = logits.argmax(-1)[:, None]
     pos = batch.shape[1]
-    profile(torch, f"sync decode step (B={batch.shape[0]}, position {pos})",
-            lambda: eng.decode(cache, tok, pos).argmax(-1).cpu())
+    out["decode"] = profile(
+        torch, f"sync decode step (B={batch.shape[0]}, position {pos})",
+        lambda: eng.decode(cache, tok, pos).argmax(-1).cpu())
+    check(tuple(prompt.shape) == (PERF["prefill"]["B"], PERF["prefill"]["S"])
+          and (batch.shape[0], pos) == (PERF["decode"]["B"],
+                                        PERF["decode"]["pos"]),
+          f"phase 6's steps (prefill {prompt.shape}, decode B="
+          f"{batch.shape[0]} at {pos}) are not the ones phase 22 prices "
+          f"({PERF})")
+    return out
 
 
 # -- phase 7: the MoE grouped GEMM ------------------------------------------
@@ -2714,6 +2751,118 @@ def phase_timing_model(torch):
             "cycles": cycles}
 
 
+# -- phase 22: the performance pipeline over the port's own model -----------
+
+def qwen_step_flops(cfg, B: int, S: int, T: int, *,
+                    recompute_kv: bool) -> int:
+    """The dot FLOPs of one plain-path step of a dense GQA model: the
+    projections at the B * S rows they are applied to (the prefill
+    recomputes q, k and v for its cache, ``blocks._attn_prefill_cache``,
+    so they count twice there), attention's q.k^T and p.v over T keys per
+    query row (the plain path's lengths: the whole cache, masked, for a
+    decode step; the prompt in 512-row blocks for a 2048-row prefill),
+    and the LM head at each request's last row."""
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rows = B * S
+    qkv = 2 * rows * D * (H + 2 * KV) * hd
+    per_layer = (qkv * (2 if recompute_kv else 1)
+                 + 2 * rows * H * hd * D                 # o
+                 + 3 * 2 * rows * D * cfg.d_ff           # gate, up, down
+                 + 2 * 2 * B * H * S * T * hd)           # q.k^T, p.v
+    return cfg.n_layers * per_layer + 2 * B * D * cfg.vocab_size
+
+
+def phase_perf_pipeline(torch, measured):
+    """(a) full-width qwen2-7b's graphs of phase 6's two steps, held to
+    the closed form; (b) the H100 roofline against phase 6's device
+    times (``measured``, ``phase_sync_profile``'s readings); (c) the
+    what-if grid, the five-device sweep and the H100's refusals; (d) the
+    phase's wall time."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.whatif import workload_grid
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.perf import format_reports, predict, sweep
+    from repro_torch.perf.torch_graph import (capture, meta_cache,
+                                              meta_params, meta_tokens)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), use_kernels=False)
+    params = meta_params(cfg)
+    pf, dc = PERF["prefill"], PERF["decode"]
+    graphs = {
+        "prefill": capture(prefill, cfg, params,
+                           {"tokens": meta_tokens((pf["B"], pf["S"]))},
+                           pf["max_len"]),
+        "decode": capture(decode_step, cfg, params,
+                          meta_cache(cfg, dc["B"], dc["max_len"]),
+                          meta_tokens((dc["B"], 1)), dc["pos"]),
+    }
+    # (a) the plain prefill attends the prompt in 512-row blocks (2048 is
+    # a multiple); the decode step the whole max_len cache, masked
+    want = {"prefill": qwen_step_flops(cfg, pf["B"], pf["S"], pf["S"],
+                                       recompute_kv=True),
+            "decode": qwen_step_flops(cfg, dc["B"], 1, dc["max_len"],
+                                      recompute_kv=False)}
+    for name, g in graphs.items():
+        print(f"phase 22 (a): {cfg.name} {name} graph ({cfg.n_layers} "
+              f"layers, meta device): {g.flops / 1e9:.3f} GFLOP in "
+              f"{len(g.dots)} dot sites "
+              f"({sum(op.count for op in g.dots):.0f} calls), "
+              f"{g.bytes_accessed / 1e9:.3f} GB moved, of which "
+              f"{g.flash_block_bytes / 1e9:.3f} GB attention "
+              f"intermediates the kernels keep on chip; closed form "
+              f"{want[name] / 1e9:.3f} GFLOP")
+        check(g.flops == want[name], f"phase 22: the {name} graph's dot "
+              f"FLOPs {g.flops} are not the closed form's {want[name]}")
+
+    # (b)
+    for name, g in graphs.items():
+        rep = predict(g, device="h100", engine="roofline",
+                      workload_name=f"{cfg.name} {name}")
+        m = measured[name]
+        dev = m["device_ms"]
+        kind = "device time" if dev is not None else "wall time (device " \
+            "time not measured)"
+        got = dev if dev is not None else m["wall_ms"]
+        pred = rep.total_time_s * 1e3
+        print(f"phase 22 (b): {name} on h100: roofline {pred:.4f} ms "
+              f"({rep.bound}-bound: compute {rep.compute_time_s * 1e3:.4f} "
+              f"ms, memory {rep.memory_time_s * 1e3:.4f} ms; plan "
+              f"{rep.plan_summary()}), phase 6's {kind} {got:.4f} ms on the "
+              f"kernel path: {got / pred:.3f}x the roofline")
+        check(got >= pred, f"phase 22: the {name} step's measured {kind} "
+              f"{got:.4f} ms beats its kernel-adjusted roofline "
+              f"{pred:.4f} ms: the graph counts work the kernel path "
+              "does not do")
+
+    # (c)
+    grid = workload_grid(graphs["prefill"], PERF["grid_device"],
+                         engine="mfma", mfma_scale=PERF["scales"])
+    times = [r.total_time_s for r in grid.values()]
+    print(f"phase 22 (c): mfma what-if on {PERF['grid_device']} (prefill): "
+          + ", ".join(f"{k} {r.total_time_s * 1e3:.4f} ms"
+                      for k, r in grid.items()))
+    check(times[2] == 2 * times[1], f"phase 22: the mfma time on "
+          f"{PERF['grid_device']} does not double from mfma_scale 1 to 2: "
+          f"{times}")
+    reports = sweep({f"{cfg.name} {k}": g for k, g in graphs.items()},
+                    devices=PERF["devices"], engines=PERF["engines"])
+    print(format_reports(reports))
+    for engine in ("mfma", "scoreboard"):
+        try:
+            predict(graphs["decode"], device="h100", engine=engine)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "roofline" in refused,
+              f"phase 22: the {engine} engine priced h100 instead of "
+              "raising a ValueError that names the roofline engine")
+        print(f"phase 22 (c): {engine} on h100 raises: {refused}")
+    wall = time.perf_counter() - t0
+    print(f"phase 22: {wall:.1f} s")
+    check(wall < PERF["max_s"], f"phase 22 took {wall:.1f} s, over its "
+          f"{PERF['max_s']} s")
+
+
 def draw_params(torch, cfg, seed: int, what: str):
     from repro_torch.models import init_params
     t0 = time.perf_counter()
@@ -2783,7 +2932,7 @@ def main() -> int:
             launches["decode_attention"]
         phase_engines(torch, cfg, params, reqs, paged_results)
         phase_profile(torch, cfg, params, serve_trace(cfg.vocab_size))
-        phase_sync_profile(torch, cfg, params)
+        sync_readings = phase_sync_profile(torch, cfg, params)
         del params
         torch.cuda.empty_cache()
         lap("phases 3-6 (qwen2-7b)")
@@ -2871,6 +3020,8 @@ def main() -> int:
         lap("phase 20 (training)")
         listing1 = phase_timing_model(torch)
         lap("phase 21 (the timing model and the Listing-1 probe)")
+        phase_perf_pipeline(torch, sync_readings)
+        lap("phase 22 (the performance pipeline)")
         for rec in records.values():
             rec["launches"] = sum(rec["launches_by_phase"].values())
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [

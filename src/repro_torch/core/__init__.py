@@ -14,10 +14,10 @@ Public surface:
   microbench     — Listing-1 streams + Eq. 1 extraction (Tables II-V)
   whatif         — --mfma-scale / overlay-grid analysis (Table VI)
   functional     — D = C + A@B oracle semantics (PyTorch)
-
-The reference's ``hlo_bridge`` and ``hlo_analysis`` parse compiled HLO
-through its perf pipeline; their twins come with it (ROADMAP queue 1,
-item 6b).
+  hlo_bridge     — compiled-HLO -> MFMA accounting (a deprecated shim over
+                   repro_torch.perf)
+  hlo_analysis   — loop-aware HLO statistics (a deprecated shim over
+                   repro_torch.perf.hlo_ir)
 """
 
 from repro_torch.core import (isa, machine, program, scoreboard,  # noqa: F401

@@ -11,12 +11,10 @@ The single ``mfma_scale`` float generalises to composable
 :class:`repro_torch.arch.Overlay` scenarios (clock/memory-latency/bandwidth
 scaling, per-instruction table patches); sweeps are overlay *grids* —
 see :func:`overlay_table` and :func:`grid_sweep` for the
-instruction-isolated (microbenchmark) view.
-
-Left out: the reference's ``workload_grid``, the whole-workload
-scenario sweep through its perf pipeline (``repro.perf.pipeline``), and
-the workload-level (Amdahl-limited) view of its ``hlo_bridge``.  Both
-come with the perf pipeline's twin (ROADMAP queue 1, item 6b).
+instruction-isolated (microbenchmark) view, and :func:`workload_grid`
+for the whole-workload view through the perf pipeline
+(:mod:`repro_torch.perf.pipeline`), over HLO text or a graph the port's
+models give (:func:`repro_torch.perf.torch_graph.capture`).
 """
 
 from __future__ import annotations
@@ -28,7 +26,8 @@ from repro_torch.core import isa
 from repro_torch.core.machine import MachineModel
 from repro_torch.core.microbench import measure_latency
 
-__all__ = ["scale_table", "scale_sweep", "overlay_table", "grid_sweep"]
+__all__ = ["scale_table", "scale_sweep", "overlay_table", "grid_sweep",
+           "workload_grid"]
 
 
 def _validated_instrs(machine: MachineModel) -> Sequence[str]:
@@ -99,3 +98,24 @@ def grid_sweep(machine: MachineModel, instr_name: str, *, n_mfma: int = 4,
                                              instr_name, n_mfma)
     return out
 
+
+
+def workload_grid(workload, machine, *, engine="mfma", **axes):
+    """Whole-workload scenario grid through the unified pipeline.
+
+    The workload-level counterpart of :func:`grid_sweep`: ``workload`` is
+    HLO text / a ``KernelGraph`` (a captured one too) / a dry-run
+    artifact path, ``engine`` any registered cost engine, and the result
+    maps each overlay scenario to its shared-schema
+    :class:`repro_torch.perf.Report` (parsed exactly once across the
+    whole grid).
+
+    >>> workload_grid(graph, "mi300x",
+    ...               mfma_scale=(0.5, 1, 2), clock_scale=(1, 1.2))
+    {'mfma x0.5': Report(...), ...}
+    """
+    from repro_torch.perf.pipeline import predict  # local: keep core light
+    overlays = overlay_grid(**axes)
+    reports = predict(workload, device=machine, engine=engine,
+                      overlays=overlays)
+    return {ov.describe(): rep for ov, rep in zip(overlays, reports)}

@@ -63,6 +63,9 @@ TILE = 64             # cache rows per step of the kernels (kTile)
 BLOCKS_PER_SM = 2     # the kernels' target, as splits allow
 PAGE_QUANTUM = 16     # a pool page is a multiple of 16 rows ...
 MAX_PAGE = 512        # ... up to 512 (the paged cache's pages)
+MAX_HD = 256          # head dims up to this ...
+HD_QUANTUM = 32       # ... in multiples of this
+STAGES = 2            # K and V tiles in flight (csrc/decode_split.cuh:222)
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _DECODE_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
@@ -71,7 +74,6 @@ _PAGED_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _SCRATCH: Dict[tuple, tuple] = {}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_HD = 256
 
 
 def _tile_walk(qf, k_pool, v_pool, tables, lens, scale):
@@ -141,9 +143,9 @@ def _check(q, k_pool, v_pool, block_tables, kv_len) -> None:
     if k_pool.shape[3] != hd or H % KV:
         raise ValueError(f"{NAME}: q heads {H} x {hd} do not group over "
                          f"pool heads {KV} x {k_pool.shape[3]}")
-    if hd % 32 or hd > _MAX_HD:
-        raise ValueError(f"{NAME}: head dim {hd} must be a multiple of 32 "
-                         f"and at most {_MAX_HD}")
+    if hd % HD_QUANTUM or hd > MAX_HD:
+        raise ValueError(f"{NAME}: head dim {hd} must be a multiple of "
+                         f"{HD_QUANTUM} and at most {MAX_HD}")
     page = k_pool.shape[1]
     if page % PAGE_QUANTUM or not PAGE_QUANTUM <= page <= MAX_PAGE:
         raise ValueError(f"{NAME}: page {page} must be a multiple of "
@@ -292,9 +294,9 @@ def _check_decode(q, k, v, kv_len) -> None:
     if k.shape[0] != B or k.shape[3] != hd or H % KV:
         raise ValueError(f"{DECODE}: q {tuple(q.shape)} does not group over "
                          f"k/v {tuple(k.shape)} (batch, head dim, H % KV)")
-    if hd % 32 or hd > _MAX_HD:
-        raise ValueError(f"{DECODE}: head dim {hd} must be a multiple of 32 "
-                         f"and at most {_MAX_HD}")
+    if hd % HD_QUANTUM or hd > MAX_HD:
+        raise ValueError(f"{DECODE}: head dim {hd} must be a multiple of "
+                         f"{HD_QUANTUM} and at most {MAX_HD}")
     if min(B, k.shape[1]) < 1:
         raise ValueError(f"{DECODE}: empty operand: B={B}, T={k.shape[1]}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \

@@ -45,10 +45,12 @@ __all__ = ["flash_attention", "flash_attention_plain", "LAUNCHES", "TILE"]
 NAME = "flash_attention"
 LAUNCHES: Dict[str, int] = {NAME: 0}
 TILE = 64                       # key rows per step of the CUDA kernel (kBKV)
+QUERY_ROWS = 64                 # query rows a block (kBQ, the .cu:77)
+STAGES = 2                      # K, V tiles in flight on tensor cores (:86)
+HEAD_DIMS = (32, 64, 128)       # the head dims the kernels are built for
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (32, 64, 128)
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -109,8 +111,8 @@ def _check(q, k, v) -> None:
     if k.shape[0] != B or k.shape[3] != hd or H % KV:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} does not group over "
                          f"k/v {tuple(k.shape)} (batch, head dim, H % KV)")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"{NAME}: head dim {hd} not in {_HEAD_DIMS}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim {hd} not in {HEAD_DIMS}")
     if min(B, S, T) < 1:
         raise ValueError(f"{NAME}: empty operand: B={B}, S={S}, T={T}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \

@@ -44,8 +44,8 @@ LAUNCHES: Dict[str, int] = {NAME: 0}
 CHUNK = 128                     # rows per chunk of the CUDA kernels (kQ)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_D_STATES = (16, 32, 64, 128)
-_HD_QUANTUM = 16                # hd: the kernels' 16-row fragments along it
+D_STATES = (16, 32, 64, 128)    # the state sizes the kernels are built for
+HD_QUANTUM = 16                 # hd: the kernels' 16-row fragments along it
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -148,11 +148,11 @@ def _check(x, dt, A, Bm, Cm) -> None:
             f"(need matching B, S, nh and a group count G dividing nh)")
     if min(B, S, nh) < 1:
         raise ValueError(f"{NAME}: empty operand: B={B}, S={S}, nh={nh}")
-    if ds not in _D_STATES:
-        raise ValueError(f"{NAME}: state size ds={ds} not in {_D_STATES}")
-    if hd < _HD_QUANTUM or hd % _HD_QUANTUM:
+    if ds not in D_STATES:
+        raise ValueError(f"{NAME}: state size ds={ds} not in {D_STATES}")
+    if hd < HD_QUANTUM or hd % HD_QUANTUM:
         raise ValueError(f"{NAME}: head dim hd={hd} is not a positive "
-                         f"multiple of {_HD_QUANTUM}")
+                         f"multiple of {HD_QUANTUM}")
     if x.dtype not in _DTYPE_CODES or Bm.dtype != x.dtype \
             or Cm.dtype != x.dtype:
         raise ValueError(f"{NAME}: x, Bm and Cm must share one of "

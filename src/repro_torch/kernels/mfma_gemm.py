@@ -50,6 +50,16 @@ BLOCK_K = 64                    # contraction depth of a kernel slice (kWK, kDK)
 DECODE_ROWS = 64                # M up to this takes the decode path
 DECODE_COLUMNS = 64             # output columns of a decode block (kDN)
 BLOCKS_PER_SM = 6               # the decode path's target, as splits allow
+# The tiles the kernels fix in csrc/mfma_gemm.cu (line numbers there),
+# named here for the perf layer's planner (repro_torch.kernels.plan):
+WGMMA_ROWS = 128                # output rows of a wgmma block (kWM, :363)
+WGMMA_COLUMNS = 256             # its output columns (kWN, :364)
+WGMMA_M = 64                    # rows of one wgmma, m64n256k16 (:6)
+STAGES = 4                      # slices in the wgmma, decode rings (:366)
+DECODE_ROW_TILES = (16, 32, 64)  # decode blocks' rows: least >= M (:639)
+VECTOR = 8                      # K, N multiples of this: the rings (:638)
+TILE = 64                       # element-load, f32 blocks' rows, cols (:95)
+TILE_K = 32                     # their contraction depth a slice (:97)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)

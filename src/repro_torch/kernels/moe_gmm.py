@@ -41,6 +41,15 @@ __all__ = ["moe_gmm", "moe_gmm_plain", "LAUNCHES"]
 
 NAME = "moe_gmm"
 LAUNCHES: Dict[str, int] = {NAME: 0}
+# The tiles the kernels fix in csrc/moe_gmm.cu (line numbers there), named
+# here for the perf layer's planner (repro_torch.kernels.plan):
+RING_COLUMNS = 128              # output columns of a ring block (kRN, :199)
+RING_K = 32                     # contraction depth per ring slice (kRK, :200)
+RING_STAGES = 4                 # slices in flight (kStages, :201)
+RING_ROWS = (16, 32, 64, 128)   # ring row tiles: least >= C (:355)
+VECTOR = 8                      # K, N multiples of this: the ring (:352)
+TILE = 64                       # gmm_kernel's rows and columns (kBM, kBN, :85)
+TILE_K = 32                     # its contraction depth per slice (kBK, :87)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

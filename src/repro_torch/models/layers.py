@@ -39,11 +39,13 @@ def mm(a: torch.Tensor, b: torch.Tensor,
     That product has no derivative in PyTorch; when an operand requires
     grad it runs through :class:`_MmF32`, whose backward rounds the f32
     output gradient to the operands' dtype once and accumulates both
-    products in f32.
+    products in f32.  Meta tensors take the GPU's route: the perf layer's
+    graph capture (:mod:`repro_torch.perf.torch_graph`) records the
+    products the card runs.
     """
     out = torch.float32 if out_dtype is None else out_dtype
     low = a.dtype in (torch.bfloat16, torch.float16)
-    if a.device.type == "cuda" and low:
+    if a.device.type in ("cuda", "meta") and low:
         if out == a.dtype:
             return torch.matmul(a, b)
         if b.dim() == 2 and out == torch.float32:

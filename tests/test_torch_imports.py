@@ -270,3 +270,41 @@ def test_timing_modules_are_pure_python():
                 imported.add(node.module.split(".")[0])
         assert not imported & {"torch", "jax", "jaxlib", "numpy", "repro"}, \
             (name, imported)
+
+
+_WHATIF_PROBE = r"""
+import importlib.util, json, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+spec = importlib.util.spec_from_file_location(
+    "torch_whatif_analysis",
+    sys.argv[1] + "/examples/torch_whatif_analysis.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"leaked": leaked, "main": callable(mod.main)}))
+"""
+
+PERF_MODULES = ("repro_torch.perf", "repro_torch.perf.hlo_ir",
+                "repro_torch.perf.report", "repro_torch.perf.cache",
+                "repro_torch.perf.engines", "repro_torch.perf.pipeline",
+                "repro_torch.perf.torch_graph", "repro_torch.kernels.plan",
+                "repro_torch.core.hlo_bridge",
+                "repro_torch.core.hlo_analysis")
+
+
+def test_perf_modules_and_example_import_clean():
+    """The perf pipeline's modules (walked by the first test above) each
+    import cleanly as the first of the port, and the what-if example
+    loads neither jax nor the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _FIRST_PROBE, str(ROOT),
+                          *PERF_MODULES], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"ok": {n: True for n in PERF_MODULES}, "leaked": []}
+    out = subprocess.run([sys.executable, "-c", _WHATIF_PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "main": True}

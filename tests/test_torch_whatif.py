@@ -1,13 +1,17 @@
 """The port's what-if sweeps against the reference's (paper Section V-B,
 Table VI): ``scale_table``, ``overlay_table``, ``scale_sweep`` and
 ``grid_sweep`` on every device with a table, and the clear error on
-devices without one (the TPUs and the H100)."""
+devices without one (the TPUs and the H100); ``workload_grid`` through
+the perf pipeline on every device and engine."""
 
 import pytest
 
+from _torch_perf import (ENGINES, GRID, REF_DEVICES, assert_same_report,
+                         gemm_text)
 from _torch_timing import TABLE_DEVICES, machines, outcome
 from repro.arch import overlay as ref_overlay
 from repro.core import whatif as ref_whatif
+from repro_torch import perf
 from repro_torch.arch import Overlay
 from repro_torch.core import isa, whatif
 from repro_torch.core.machine import get_machine
@@ -77,6 +81,32 @@ def test_tableless_devices_raise_clearly(name):
 
 
 def test_workload_grid_is_left_for_the_perf_pipeline():
-    """The whole-workload sweep needs the perf pipeline's twin."""
-    assert not hasattr(whatif, "workload_grid")
-    assert set(whatif.__all__) == set(ref_whatif.__all__) - {"workload_grid"}
+    """The whole-workload sweep goes through the perf pipeline's twin:
+    the port exports what the reference exports, ``workload_grid``
+    included, and it prices through ``repro_torch.perf``."""
+    assert set(whatif.__all__) == set(ref_whatif.__all__)
+    grid = whatif.workload_grid(gemm_text(), "mi300", mfma_scale=(1, 2))
+    assert list(grid) == ["baseline", "mfma x2"]
+    assert all(isinstance(r, perf.Report) for r in grid.values())
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("name", REF_DEVICES)
+def test_workload_grid_equals_reference(name, engine):
+    """The same compiled fixture, the same composed grid: the same
+    scenarios and Reports (floats to rounding)."""
+    got = whatif.workload_grid(gemm_text(), name, engine=engine, **GRID)
+    want = ref_whatif.workload_grid(gemm_text(), name, engine=engine,
+                                    **GRID)
+    assert list(got) == list(want)
+    for k in want:
+        assert_same_report(got[k], want[k])
+
+
+def test_workload_grid_on_the_h100_is_roofline_only():
+    grid = whatif.workload_grid(gemm_text(), "h100", engine="roofline",
+                                bw_scale=(1, 2))
+    base, fast = grid.values()
+    assert fast.memory_time_s == pytest.approx(base.memory_time_s / 2)
+    with pytest.raises(ValueError, match="roofline"):
+        whatif.workload_grid(gemm_text(), "h100", mfma_scale=(1, 2))
