@@ -987,3 +987,86 @@ def test_listing1_wrapper_on_the_card(cuda):
     assert torch.equal(d, LISTING1.listing1_plain(a, b, c, 4))
     assert LISTING1.t_total(stamps.cpu()) > 0
     assert launch_counts()["listing1"] == 1
+
+
+#: tests/test_fleet.py's four mixes: (prompt length, n_steps, arrival)
+FLEET_TRACES = {
+    "decode_heavy": [(6, 24, 0), (9, 30, 0), (7, 18, 1)],
+    "prefill_heavy": [(130, 3, 0), (120, 2, 0), (96, 2, 1)],
+    "gapped": [(8, 6, 0), (10, 5, 14), (12, 4, 30)],
+    "mixed": [(64, 10, 0), (9, 20, 0), (100, 4, 2), (12, 12, 3)],
+}
+#: tests/test_fleet.py's engine settings
+FLEET_ENGINE = dict(max_len=160, max_batch=2, page=128, prefill_chunk=32,
+                    prefix_cache=False)
+
+
+def _fleet_engine():
+    cfg = get_config("qwen2-7b").reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    return cfg, PagedServeEngine(cfg, params, **FLEET_ENGINE)
+
+
+def _fleet_trace(cfg, specs, seed=7):
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(0, cfg.vocab_size, (s,))
+                    .astype(np.int32), n_steps=n, arrival=a)
+            for s, n, a in specs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FLEET_TRACES))
+def test_fleet_replica_tick_exact_on_the_card(cuda, name):
+    """The fleet replica against the paged engine on the kernel path
+    (reduced qwen2-7b at tests/test_fleet.py's settings): every counter
+    equal, and the paged kernel launched once per layer per decode
+    step."""
+    from repro_torch.fleet import simulate_trace
+    cfg, eng = _fleet_engine()
+    reset_launch_counts()
+    _, stats = eng.run(_fleet_trace(cfg, FLEET_TRACES[name]))
+    assert launch_counts()["paged_decode_attention"] == \
+        cfg.n_layers * stats.decode_steps
+    sim = simulate_trace(_fleet_trace(cfg, FLEET_TRACES[name]),
+                         max_len=eng.max_len, max_batch=eng.max_batch,
+                         page=eng.page, n_blocks=eng.cache.n_blocks,
+                         prefill_chunk=eng.prefill_chunk)
+    for field in ("requests", "tokens", "ticks", "decode_steps",
+                  "prefill_chunks", "completed", "shed", "timeouts",
+                  "cancelled", "preemptions", "stalled_ticks"):
+        assert getattr(sim, field) == stats[field], field
+    assert abs(sim.occupancy_max - stats.occupancy_max) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_fleet_fitted_costs_predict_heldout_trace_on_the_card(cuda):
+    """tests/test_fleet.py's calibration band on the card's kernel path:
+    tick costs fitted on the decode-heavy, prefill-heavy and gapped
+    mixes predict the held-out mixed trace's per-token latency within
+    [0.5, 2.0]x.  (On the CPU under the suite's workers the walls share
+    the cores and the band is unsteady, so it is held here.)"""
+    import time
+    from repro_torch.fleet import fit_tick_costs
+    cfg, eng = _fleet_engine()
+    eng.run(_fleet_trace(cfg, [(8, 3, 0)]))          # warm-up
+
+    def timed(specs, seed):
+        trace = _fleet_trace(cfg, specs, seed=seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, stats = eng.run(trace)
+        torch.cuda.synchronize()
+        return stats, time.perf_counter() - t0
+
+    obs = [timed(FLEET_TRACES[k], seed)
+           for seed, k in enumerate(("decode_heavy", "prefill_heavy",
+                                     "gapped"))]
+    costs = fit_tick_costs(obs)
+    held_stats, held_wall = timed(FLEET_TRACES["mixed"], seed=99)
+    predicted = costs.token_latency_s(held_stats)
+    measured = held_wall / held_stats["tokens"]
+    assert 0.5 * measured <= predicted <= 2.0 * measured, \
+        f"predicted {predicted * 1e3:.3f} ms/tok vs measured " \
+        f"{measured * 1e3:.3f} ms/tok ({costs})"

@@ -308,3 +308,33 @@ def test_perf_modules_and_example_import_clean():
                          timeout=120, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"leaked": [], "main": True}
+
+
+_FLEET_PROBE = r"""
+import importlib, importlib.util, json, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+mods = {}
+for name in ("repro_torch.fleet", "repro_torch.fleet.__main__",
+             "repro_torch.fleet.scenario", "repro_torch.fleet.capacity",
+             "repro_torch.fleet.frontier", "repro_torch.fleet.cli"):
+    mods[name] = importlib.import_module(name).__name__ == name
+spec = importlib.util.spec_from_file_location(
+    "torch_fleet_planning", sys.argv[1] + "/examples/torch_fleet_planning.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"leaked": leaked, "mods": mods, "main": callable(mod.main)}))
+"""
+
+
+def test_fleet_modules_and_example_import_clean():
+    """The fleet planner, its ``__main__`` (imported without running the
+    CLI) and the fleet example load neither jax nor the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _FLEET_PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == [] and got["main"] is True
+    assert got["mods"] and all(got["mods"].values())
