@@ -218,6 +218,34 @@ depends on it, so that one run reports every such failure):
     the identity and ``mfma_scale`` 2 must be finite and feasible in
     every cell (the h100 rows printed), and the ``mfma`` engine with
     ``h100`` among the devices must raise; (e) the phase under 60 s.
+24. the parallel layer (``repro_torch.parallel``, ``kernels.sharded``,
+    ``repro_torch.launch``), run right after phase 23 on phase 3's
+    qwen2-7b weights: (a) a one-rank NCCL process group (a ``FileStore``
+    in a temporary directory) and a (1, 1) ("data", "model") mesh; the
+    weights placed by ``param_axes_rule`` as DTensors (no copy); a
+    prefill of 4 x 1024-token prompts and 4 decode steps on the kernel
+    path through the sharded wrappers, teacher-forced along the same
+    steps run unsharded: flash and decode launched n_layers x prefills
+    and n_layers x steps, each in its own shard body; the first decode
+    step's logits within 2e-2 relative error of the unsharded step's and
+    the largest absolute difference printed (identical is expected); the
+    sharded path's greedy tokens may leave the unsharded stream only at a
+    near-tie (top-2 margin < 0.05); the sharded and unsharded decode
+    step's wall time and device idle share; (b) ``mamba2_ssd`` at
+    mamba2-370m's width (B = 4, S = 1024) and ``moe_gmm`` at qwen3-moe's
+    decode gate/up on replicated DTensor operands, which send them
+    through the sharded path, each one shard body, held to
+    its plain version by phase 2's rule; (c) ``quantize``,
+    ``int8_psum`` (NCCL) and three ``compress_decompress`` steps on the
+    card equal to the CPU's (gloo) bit for bit; (d) in four
+    subprocesses (a ``fake`` process group cannot share a process with
+    NCCL's), ``python -m repro_torch.launch.dryrun`` of qwen2-7b's
+    train_4k, prefill_32k and decode_32k and mamba2-370m's long_500k on
+    the (16, 16) production mesh of a 256-rank fake group, priced on the
+    H100 by ``repro_torch.launch.roofline``: per-device GiB against the
+    card's memory, FLOPs, bytes, wire bytes, the roofline's three times
+    and bound; every FLOP and byte count > 0, and collective bytes > 0
+    wherever the model axis shards a weight; (e) the phase under 120 s.
 
 Each phase prints its wall time.  The last three lines are the card's
 name and power limit, a JSON record of every kernel (with its timed
@@ -347,6 +375,14 @@ PERF = dict(prefill=dict(B=1, S=SYNC["max_len"], max_len=SYNC["max_len"]),
 # and four trace mixes ((prompt length, n_steps, arrival) per request),
 # tests/test_serve_resilience.py's overload trace with faults, the
 # reference's calibration band, and the frontier's devices and what-if
+SHARDED = dict(batch=4, prompt=1024, max_len=2048, n_steps=4, seed=16,
+               # (b): mamba2-370m's batch prefill (phase 12) and qwen3-moe's
+               # decode gate/up (phase 7), random operands from the seed
+               ssd=dict(B=4, S=1024, seed=17), gmm=dict(C=32, seed=18),
+               max_s=120)
+# (d): the dry-run cells priced on the production (16, 16) mesh
+DRYRUN_CELLS = (("qwen2-7b", "train_4k"), ("qwen2-7b", "prefill_32k"),
+                ("qwen2-7b", "decode_32k"), ("mamba2-370m", "long_500k"))
 FLEET_MIXES = {"decode_heavy": [(6, 24, 0), (9, 30, 0), (7, 18, 1)],
                "prefill_heavy": [(130, 3, 0), (120, 2, 0), (96, 2, 1)],
                "gapped": [(8, 6, 0), (10, 5, 14), (12, 4, 30)],
@@ -3126,6 +3162,332 @@ def phase_fleet(torch, cfg, params, paged):
     return launches
 
 
+# -- phase 24: the parallel layer on the card ---------------------------------
+
+def start_dryruns(out_dir: Path):
+    """(d)'s cells, one ``repro_torch.launch.dryrun`` subprocess each,
+    started together (a ``fake`` process group cannot share a process
+    with NCCL's; the children see no card)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return [((arch, shape), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out_dir)], env=env, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for arch, shape in DRYRUN_CELLS]
+
+
+def finish_dryruns(torch, procs, out_dir: Path, card: str) -> None:
+    """Waits for the dry-runs (every one ended, killed past its limit),
+    prices each record on the H100's roofline and checks its counts."""
+    from types import SimpleNamespace
+    from repro_torch.launch.roofline import load_cells
+    from repro_torch.models.model import param_axes_rule
+    from repro_torch.parallel.api import logical_to_spec
+    from repro_torch.perf.torch_graph import meta_params
+    from repro_torch.configs import get_config
+    from repro_torch.tree import flatten_with_path
+    failed = []
+    for (arch, shape), proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            failed.append(f"{arch} {shape}: no record in 300 s")
+            continue
+        if proc.returncode:
+            failed.append(f"{arch} {shape} (rc {proc.returncode}): "
+                          f"{err[-1500:]}")
+        else:
+            print(next(l for l in out.splitlines() if "[dryrun] " + arch
+                       in l))
+    check(not failed, "dry-run failed: " + "; ".join(failed))
+    rows = {(r["arch"], r["shape"]): r
+            for r in load_cells(str(out_dir), device="h100")}
+    hbm = torch.cuda.get_device_properties(0).total_memory / 2**30
+    mesh = SimpleNamespace(shape={"data": 16, "model": 16})
+    for arch, shape in DRYRUN_CELLS:
+        rec = json.loads((out_dir / f"{arch}_{shape}_single.json")
+                         .read_text())
+        row, hlo, mem = rows[(arch, shape)], rec["hlo"], rec["memory"]
+        check(hlo["flops_per_device"] > 0 and hlo["bytes_per_device"] > 0
+              and mem["argument_size_in_bytes"] > 0,
+              f"dry-run {arch} {shape}: a FLOP or byte count is 0")
+        cfg = get_config(arch)
+        model_weights = sum(
+            "model" in json.dumps(list(logical_to_spec(
+                leaf.shape, param_axes_rule(path, leaf), mesh)))
+            for path, leaf in flatten_with_path(meta_params(cfg)))
+        check(model_weights == 0 or hlo["collective_wire_bytes"] > 0,
+              f"dry-run {arch} {shape}: the model axis shards "
+              f"{model_weights} weights but no collective byte was counted")
+        bound_ms = max(row["compute_t"], row["memory_t"],
+                       row["collective_t"]) * 1e3
+        print(f"dry-run {arch} {shape} on 16x16 (one device of 256; card: "
+              f"{card}): {row['mem_gib']:.3f} GiB of the card's {hbm:.1f} "
+              f"GiB (arguments {mem['argument_size_in_bytes']} + outputs "
+              f"{mem['output_size_in_bytes']} - in place "
+              f"{mem['alias_size_in_bytes']} bytes; "
+              f"{mem['not_measured'].split(':')[0]} not measured); "
+              f"{hlo['flops_per_device']:.4g} FLOP, "
+              f"{hlo['bytes_per_device']:.4g} B, "
+              f"{hlo['collective_wire_bytes']:.4g} wire B in "
+              f"{sum(rec['comm_counts'].values())} collectives; h100 "
+              f"roofline: compute {row['compute_t'] * 1e3:.3f} ms, memory "
+              f"{row['memory_t'] * 1e3:.3f} ms, collective "
+              f"{row['collective_t'] * 1e3:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({row['dominant']}), MODEL/counted "
+              f"{row['useful_ratio']:.3f}; the run took {rec['run_s']} s")
+
+
+def sharded_streams(torch, cfg, params, mesh, prompt, stream=None):
+    """Prefill ``prompt`` and ``SHARDED["n_steps"]`` decode steps, on
+    ``mesh`` (DTensor parameters) or without one.  Without ``stream`` the
+    steps are greedy; with it, every step is fed ``stream``'s token
+    (teacher forcing).  Returns (logits a step, the greedy tokens, the
+    stream fed, the cache, the last position)."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.parallel.api import set_mesh
+
+    def full(t):
+        return (t.full_tensor() if mesh is not None else t).float()
+
+    with set_mesh(mesh):
+        logits, cache = prefill(cfg, params, {"tokens": prompt},
+                                SHARDED["max_len"])
+        out = [full(logits)[:, -1]]
+        fed = [out[-1].argmax(-1) if stream is None else stream[:, 0]]
+        pos = prompt.shape[1]
+        for i in range(SHARDED["n_steps"]):
+            lg, cache = decode_step(cfg, params, cache, fed[-1][:, None],
+                                    pos + i)
+            out.append(full(lg)[:, -1])
+            fed.append(out[-1].argmax(-1) if stream is None
+                       else stream[:, i + 1])
+    greedy = torch.stack([o.argmax(-1) for o in out], 1)
+    return out, greedy, torch.stack(fed, 1), cache, pos + SHARDED["n_steps"]
+
+
+def sharded_kernel_checks(torch, mesh):
+    """(b): ``mamba2_ssd`` and ``moe_gmm`` through the sharded path (one
+    shard body each: the wrappers take replicated DTensor operands) held
+    to their plain versions by phase 7 and 11's rule."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (mamba2_ssd, mamba2_ssd_plain, moe_gmm,
+                                     moe_gmm_plain, reset_launch_counts,
+                                     sharded_launch_counts)
+    from repro_torch.parallel.api import place, set_mesh
+
+    def on_mesh(*ts):
+        return [place(t, mesh, [Replicate()] * mesh.ndim) for t in ts]
+    out = {}
+    c = get_config(SSM["arch"])
+    B, S = SHARDED["ssd"]["B"], SHARDED["ssd"]["S"]
+    nh, hd, ds, G = 2 * c.d_model // c.ssm.head_dim, c.ssm.head_dim, \
+        c.ssm.d_state, c.ssm.n_groups
+    g = torch.Generator(device="cuda").manual_seed(SHARDED["ssd"]["seed"])
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    x = (randn(B, S, nh, hd) * 0.5).to(torch.bfloat16)
+    dt = F.softplus(randn(B, S, nh))
+    A = -torch.linspace(1.0, 16.0, nh, device="cuda")
+    Bm = (randn(B, S, G, ds) * 0.5).to(torch.bfloat16)
+    Cm = (randn(B, S, G, ds) * 0.5).to(torch.bfloat16)
+    reset_launch_counts()
+    with set_mesh(mesh):
+        y, h = mamba2_ssd(*on_mesh(x, dt, A, Bm, Cm))
+    bodies = sharded_launch_counts()["mamba2_ssd"]
+    y, h = y.full_tensor(), h.full_tensor()
+    want_y, want_h = mamba2_ssd_plain(x, dt, A, Bm, Cm)
+    shape = f"{c.name} B={B} S={S} nh={nh} hd={hd} ds={ds} G={G} bf16"
+    err = max(held_to_plain(torch, f"sharded mamba2_ssd y ({shape})", y,
+                            want_y),
+              held_to_plain(torch, f"sharded mamba2_ssd state ({shape})", h,
+                            want_h))
+    check(bodies == 1, f"sharded mamba2_ssd: {bodies} shard bodies, not 1")
+    out["mamba2_ssd"] = {"shape": shape, "bodies": bodies,
+                         "max_abs_err": err}
+    m = get_config(MOE["arch"])
+    E, C, K, N = m.moe.n_experts, SHARDED["gmm"]["C"], m.d_model, \
+        m.moe.d_ff_expert
+    g = torch.Generator(device="cuda").manual_seed(SHARDED["gmm"]["seed"])
+    xe = torch.randn((E, C, K), generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn((E, K, N), generator=g, device="cuda")
+         / math.sqrt(K)).to(torch.bfloat16)
+    reset_launch_counts()
+    with set_mesh(mesh):
+        got = moe_gmm(*on_mesh(xe, w))
+    bodies = sharded_launch_counts()["moe_gmm"]
+    shape = f"{m.name} decode gate/up E={E} C={C} K={K} N={N} bf16"
+    err = held_to_plain(torch, f"sharded moe_gmm ({shape})",
+                        got.full_tensor(), moe_gmm_plain(xe, w))
+    check(bodies == 1, f"sharded moe_gmm: {bodies} shard bodies, not 1")
+    out["moe_gmm"] = {"shape": shape, "bodies": bodies, "max_abs_err": err}
+    for k, v in out.items():
+        print(f"sharded {k} ({v['shape']}) on the (1, 1) mesh: {v['bodies']} "
+              f"shard body, max abs err vs plain {v['max_abs_err']:.3g}")
+    return out
+
+
+def compression_check(torch) -> None:
+    """(c): the int8 compression on CUDA tensors over NCCL equals the CPU's
+    over gloo bit for bit: int8 values, scales, ``int8_psum``'s mean and
+    three error-feedback steps."""
+    import torch.distributed as dist
+    from repro_torch.parallel.compression import (compress_decompress,
+                                                  init_residuals, int8_psum,
+                                                  quantize)
+    gloo = dist.new_group(backend="gloo")
+    g = torch.Generator().manual_seed(19)
+    x = torch.randn((4096, 1024), generator=g) * 3.0
+    xc = x.cuda()
+    q, scale = quantize(x)
+    qc, scale_c = quantize(xc)
+    check(torch.equal(qc.cpu(), q) and torch.equal(scale_c.cpu(), scale),
+          "quantize: the card's int8 values or scale differ from the CPU's")
+    got, want = int8_psum(xc), int8_psum(x, group=gloo)
+    check(torch.equal(got.cpu(), want), "int8_psum over NCCL differs from "
+          "the CPU's over gloo")
+    tree = {"w": x[:512], "b": [(x[0, :100] * 1e-3).to(torch.bfloat16)]}
+    tree_c = _map(lambda t: t.cuda(), tree)
+    res, res_c = init_residuals(tree), init_residuals(tree_c)
+    for i in range(3):
+        step = _map(lambda t: t * (1 + 0.1 * i), tree)
+        hat, res = compress_decompress(step, res)
+        hat_c, res_c = compress_decompress(_map(lambda t: t.cuda(), step),
+                                           res_c)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(
+            _leaves((hat_c, res_c)), _leaves((hat, res)))),
+            f"compress_decompress step {i}: the card differs from the CPU")
+    dist.destroy_process_group(gloo)
+    print(f"compression on the card (NCCL) against the CPU (gloo): int8 "
+          f"values and scale {float(scale):.6g} equal, int8_psum equal "
+          f"(max |mean| {float(want.abs().max()):.4g}), 3 error-feedback "
+          "steps (f32 and bf16 leaves) equal bit for bit")
+
+
+def phase_sharded(torch, cfg, params, card: str):
+    """Phase 24 on phase 3's qwen2-7b weights: (a) the sharded serving
+    path on a one-rank NCCL mesh against the same steps unsharded, (b)
+    two more kernels through the sharded path, (c) compression on the
+    card, (d) the dry-run and roofline of four production cells.
+    Returns the main path's launch counts and (b)'s readings."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     sharded_launch_counts)
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import decode_step
+    from repro_torch.models.model import param_axes_rule
+    from repro_torch.parallel.api import place_tree, set_mesh
+    from repro_torch.serve.parity import NEAR_TIE
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/store",
+                            rank=0, world_size=1)
+    procs = []
+    try:
+        mesh = make_smoke_mesh((1, 1), device="cuda")
+        dparams = place_tree(params, param_axes_rule, mesh)
+        rng = np.random.default_rng(SHARDED["seed"])
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (SHARDED["batch"], SHARDED["prompt"])
+        ).astype(np.int32)).cuda()
+        plain, stream, _, cache, pos = sharded_streams(
+            torch, cfg, params, None, prompt)
+        reset_launch_counts()
+        got, greedy, _, dcache, _ = sharded_streams(
+            torch, cfg, dparams, mesh, prompt, stream)
+        torch.cuda.synchronize()
+        launches, bodies = launch_counts(), sharded_launch_counts()
+        n_steps = SHARDED["n_steps"]
+        want = {"flash_attention": cfg.n_layers,
+                "decode_attention": cfg.n_layers * n_steps}
+        for k, n in want.items():
+            check(launches[k] == n and bodies[k] == n,
+                  f"sharded qwen2-7b: {k} launched {launches[k]} times in "
+                  f"{bodies[k]} shard bodies, want {n} (n_layers x "
+                  f"{'prefills' if k == 'flash_attention' else 'steps'})")
+        rel = float((got[1] - plain[1]).norm() / plain[1].norm())
+        max_abs = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+        print(f"sharded qwen2-7b (full width, {cfg.n_layers} layers, phase "
+              f"3's weights placed by param_axes_rule on a (1, 1) ('data', "
+              f"'model') NCCL mesh; B={SHARDED['batch']} x "
+              f"{SHARDED['prompt']}-token prompts, {n_steps} decode steps "
+              f"teacher-forced along the unsharded stream): flash "
+              f"{launches['flash_attention']} and decode "
+              f"{launches['decode_attention']} launches, all through the "
+              f"sharded wrappers; first decode step's logits relative error "
+              f"{rel:.3g} (limit {LOGIT_REL_TOL}); largest abs difference "
+              f"over the prefill and every step {max_abs:.4g}")
+        check(rel < LOGIT_REL_TOL, f"sharded decode step's logits: relative "
+              f"error {rel:.3g} >= {LOGIT_REL_TOL}")
+        n_div = 0
+        for b in range(SHARDED["batch"]):
+            diff = (greedy[b] != stream[b]).nonzero()
+            if len(diff):
+                i = int(diff[0])
+                top = torch.topk(plain[i][b], 2).values
+                margin = float(top[0] - top[1])
+                n_div += 1
+                print(f"request {b}: the sharded path's token leaves the "
+                      f"unsharded stream at step {i}, unsharded top-2 margin "
+                      f"{margin:.4g}")
+                check_later(margin < NEAR_TIE, f"sharded qwen2-7b: request "
+                            f"{b} diverges at step {i} above the near-tie "
+                            f"margin ({margin:.4g} >= {NEAR_TIE})")
+        print(f"greedy streams: {SHARDED['batch'] - n_div}/"
+              f"{SHARDED['batch']} identical to the unsharded path's")
+        tok = stream[:, -1:]
+
+        def sharded_step():
+            with set_mesh(mesh):
+                return decode_step(cfg, dparams, dcache, tok, pos)[0] \
+                    .full_tensor().argmax(-1).cpu()
+
+        readings = {
+            "unsharded": profile(torch, f"unsharded decode step (B="
+                                 f"{SHARDED['batch']}, position {pos})",
+                                 lambda: decode_step(cfg, params, cache, tok,
+                                                     pos)[0].argmax(-1).cpu()),
+            "sharded": profile(torch, f"sharded decode step on the (1, 1) "
+                               f"mesh (B={SHARDED['batch']}, position {pos})",
+                               sharded_step)}
+        w0, w1 = readings["unsharded"]["wall_ms"], \
+            readings["sharded"]["wall_ms"]
+        print(f"decode step wall: sharded {w1:.2f} ms against unsharded "
+              f"{w0:.2f} ms ({w1 / w0:.2f}x; DTensor's dispatch is host "
+              f"time); card: {card}")
+        del dparams, cache, dcache
+        torch.cuda.empty_cache()
+        out_dir = Path(tmp.name) / "dryrun"
+        procs = start_dryruns(out_dir)
+        checks = sharded_kernel_checks(torch, mesh)
+        compression_check(torch)
+    except BaseException:
+        for _, proc in procs:       # stop every process this phase started
+            proc.kill()
+            proc.communicate()
+        raise
+    finally:
+        dist.destroy_process_group()
+    finish_dryruns(torch, procs, out_dir, card)
+    tmp.cleanup()
+    took = time.perf_counter() - t0
+    print(f"phase 24 took {took:.1f} s (limit {SHARDED['max_s']} s)")
+    check(took < SHARDED["max_s"], f"phase 24 took {took:.1f} s, over "
+          f"{SHARDED['max_s']} s")
+    return {"launches": {k: launches[k] for k in want},
+            "bodies": {k: bodies[k] for k in want}, "checks": checks,
+            "readings": readings}
+
+
 def draw_params(torch, cfg, seed: int, what: str):
     from repro_torch.models import init_params
     t0 = time.perf_counter()
@@ -3199,14 +3561,22 @@ def main() -> int:
         lap("phases 3-6 (qwen2-7b)")
         paged["launches_by_phase"]["23 " + cfg.name] = phase_fleet(
             torch, cfg, params, paged)
+        lap("phase 23 (the fleet planner on qwen2-7b)")
+        sharded = phase_sharded(torch, cfg, params, card)
+        for key, rec in (("flash_attention", flash),
+                         ("decode_attention", decode)):
+            rec["launches_by_phase"]["24 " + cfg.name + " sharded"] = \
+                sharded["launches"][key]
+            rec["sharded_launches"] = sharded["bodies"][key]
         del params
         torch.cuda.empty_cache()
-        lap("phase 23 (the fleet planner on qwen2-7b)")
+        lap("phase 24 (the parallel layer: sharded qwen2-7b, dry-run)")
 
         full = get_config(MOE["arch"])
         moe_cfg = dataclasses.replace(full, n_layers=MOE["n_layers"])
         moe = moe_gmm_record(torch, moe_cfg)
         moe["launches_by_phase"] = {}
+        moe["sharded_check"] = sharded["checks"]["moe_gmm"]
         records["moe"] = moe
         torch.cuda.reset_peak_memory_stats()
         params = draw_params(
@@ -3231,6 +3601,7 @@ def main() -> int:
         lap("phases 7-10 (qwen3-moe)")
 
         ssd = ssd_record(torch)
+        ssd["sharded_check"] = sharded["checks"]["mamba2_ssd"]
         ssm_cfg = get_config(SSM["arch"])
         params = draw_params(
             torch, ssm_cfg, SSM["seed"],

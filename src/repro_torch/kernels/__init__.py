@@ -10,6 +10,10 @@ on the tensor cores).  ``listing1`` is no TPU kernel's twin: it is the
 paper's Listing-1 microbenchmark, chained ``mma.sync`` between two
 cycle-counter reads, whose stamps Eq. 1 reads
 (:mod:`repro_torch.kernels.listing1`).
+
+The four kernels with a logical-axis contract run sharded on a mesh
+when an operand is a DTensor (:mod:`repro_torch.kernels.sharded`),
+counted in :func:`sharded_launch_counts`.
 """
 
 from typing import Dict
@@ -27,12 +31,14 @@ from repro_torch.kernels.mfma_gemm import (  # noqa: F401
     LAUNCHES as _MFMA_GEMM_LAUNCHES, mfma_gemm, mfma_gemm_plain)
 from repro_torch.kernels.moe_gmm import (  # noqa: F401
     LAUNCHES as _MOE_GMM_LAUNCHES, moe_gmm, moe_gmm_plain)
+from repro_torch.kernels.sharded import SHARDED_LAUNCHES as _SHARDED
 
 __all__ = ["flash_attention", "flash_attention_plain", "decode_attention",
            "decode_attention_plain", "paged_decode_attention",
            "paged_decode_attention_plain", "moe_gmm", "moe_gmm_plain",
            "mamba2_ssd", "mamba2_ssd_plain", "mfma_gemm", "mfma_gemm_plain",
-           "listing1", "listing1_plain", "launch_counts", "reset_launch_counts"]
+           "listing1", "listing1_plain", "launch_counts", "reset_launch_counts",
+           "sharded_launch_counts"]
 
 _COUNTERS = (_FLASH_LAUNCHES, _DECODE_LAUNCHES, _MOE_GMM_LAUNCHES,
              _SSD_LAUNCHES, _MFMA_GEMM_LAUNCHES, _LISTING1_LAUNCHES)
@@ -46,7 +52,14 @@ def launch_counts() -> Dict[str, int]:
     return out
 
 
+def sharded_launch_counts() -> Dict[str, int]:
+    """Shard bodies run through the sharded path since the last reset, by
+    kernel name (one a rank a call)."""
+    return dict(_SHARDED)
+
+
 def reset_launch_counts() -> None:
-    for c in _COUNTERS:
+    """Zero every launch count, the sharded path's too."""
+    for c in _COUNTERS + (_SHARDED,):
         for k in c:
             c[k] = 0

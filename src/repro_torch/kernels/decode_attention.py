@@ -50,7 +50,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from repro_torch.arch import get_device
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sharded
 
 __all__ = ["decode_attention", "decode_attention_plain",
            "paged_decode_attention", "paged_decode_attention_plain",
@@ -199,7 +199,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     Table slots the request attends must hold in-range block ids (the
     engine points unused slots at its null block 0); they are not
     checked here, because that would stall every decode tick on a
-    device-to-host copy."""
+    device-to-host copy.
+    It has no logical-axis contract: a DTensor operand raises a
+    ``ValueError`` (:func:`repro_torch.kernels.sharded.refuse_dtensors`)."""
+    sharded.refuse_dtensors(NAME, q, k_pool, v_pool, block_tables, kv_len)
     build.no_grad_operands(NAME, q, k_pool, v_pool)
     _check(q, k_pool, v_pool, block_tables, kv_len)
     if q.device.type == "cpu":
@@ -365,7 +368,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: Union[int, torch.Tensor]) -> torch.Tensor:
     """q (B, H, hd); k/v (B, T, KV, hd); ``kv_len`` an int, or a (B,)
     int32 tensor of per-request lengths, counting the cache rows each
-    request attends (clamped to T).  Returns (B, H, hd) in q's dtype."""
+    request attends (clamped to T).  Returns (B, H, hd) in q's dtype.
+    DTensor operands run it on one shard a rank of the active mesh
+    (:mod:`repro_torch.kernels.sharded`)."""
+    if sharded.any_dtensor(q, k, v, kv_len):
+        return sharded.decode_attention(q, k, v, kv_len)
     build.no_grad_operands(DECODE, q, k, v)
     _check_decode(q, k, v, kv_len)
     if q.device.type == "cpu":

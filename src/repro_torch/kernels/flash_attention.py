@@ -38,7 +38,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sharded
 
 __all__ = ["flash_attention", "flash_attention_plain", "LAUNCHES", "TILE"]
 
@@ -145,7 +145,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, S, H, hd); k/v (B, T, KV, hd) with H = KV * G; ``kv_len`` an
     int (default T) masking key rows at or past it.  Returns
     (B, S, H, hd) in q's dtype.  The causal mask is ``key <= query``
-    with both counted from row 0, as in the reference kernel."""
+    with both counted from row 0, as in the reference kernel.
+    DTensor operands run it on one shard a rank of the active mesh
+    (:mod:`repro_torch.kernels.sharded`)."""
+    if sharded.any_dtensor(q, k, v):
+        return sharded.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
     build.no_grad_operands(NAME, q, k, v)
     _check(q, k, v)
     T = k.shape[1]

@@ -35,7 +35,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sharded
 
 __all__ = ["mamba2_ssd", "mamba2_ssd_plain", "LAUNCHES", "CHUNK"]
 
@@ -196,7 +196,11 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     final state (B, nh, hd, ds) f32) from a zero initial state.  Raises
     ``ValueError`` for what the kernel does not take: ds outside
     (16, 32, 64, 128), hd not a multiple of 16, mismatched shapes, types
-    or devices, non-contiguous operands."""
+    or devices, non-contiguous operands.
+    DTensor operands run it on one shard a rank of the active mesh
+    (:mod:`repro_torch.kernels.sharded`)."""
+    if sharded.any_dtensor(x, dt, A, Bm, Cm):
+        return sharded.mamba2_ssd(x, dt, A, Bm, Cm)
     build.no_grad_operands(NAME, x, dt, A, Bm, Cm)
     _check(x, dt, A, Bm, Cm)
     if x.device.type == "cpu":

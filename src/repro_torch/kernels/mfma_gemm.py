@@ -39,7 +39,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sharded
 
 __all__ = ["mfma_gemm", "mfma_gemm_plain", "decode_splits", "LAUNCHES",
            "BLOCK_K"]
@@ -166,7 +166,10 @@ def mfma_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
               ) -> torch.Tensor:
     """a (M, K) @ b (K, N) + c (M, N) -> (M, N) in c's dtype, accumulated
     in f32 from c.  Raises ``ValueError`` for operands the kernel does
-    not take (mismatched shapes: "incompatible operands")."""
+    not take (mismatched shapes: "incompatible operands").
+    It has no logical-axis contract: a DTensor operand raises a
+    ``ValueError`` (:func:`repro_torch.kernels.sharded.refuse_dtensors`)."""
+    sharded.refuse_dtensors(NAME, a, b, c)
     build.no_grad_operands(NAME, a, b, c)
     _check(a, b, c)
     if a.device.type == "cpu":

@@ -35,7 +35,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, sharded
 
 __all__ = ["moe_gmm", "moe_gmm_plain", "LAUNCHES"]
 
@@ -98,7 +98,11 @@ def _kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, C, K) @ w (E, K, N) -> (E, C, N) in x's dtype, accumulated
-    in f32.  Raises ``ValueError`` when E or K disagree."""
+    in f32.  Raises ``ValueError`` when E or K disagree.
+    DTensor operands run it on one shard a rank of the active mesh
+    (:mod:`repro_torch.kernels.sharded`)."""
+    if sharded.any_dtensor(x, w):
+        return sharded.moe_gmm(x, w)
     build.no_grad_operands(NAME, x, w)
     _check(x, w)
     if x.device.type == "cpu":

@@ -51,7 +51,10 @@ import torch
 from repro_torch.kernels import (decode_attention, flash_attention,
                                  paged_decode_attention)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import cdtype, dense, mm, norm_apply, rope
+from repro_torch.models.layers import (cdtype, dense, mm, model_axis,
+                                       norm_apply, rope)
+from repro_torch.parallel.api import (current_mesh, is_dtensor,
+                                      named_sharding, shard, write_rows)
 
 __all__ = ["init_attn", "attn_train", "attn_decode", "attn_decode_paged",
            "attn_prefill_paged", "init_mla", "mla_train", "mla_decode",
@@ -188,6 +191,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if use_kernels:
         return _attention_kernel(q, k, v, causal=causal, scale=scale,
                                  kv_len=kv_len)
+    if S > 1 and is_dtensor(q):
+        return _attention_on_shards(q, k, v, causal=causal, scale=scale,
+                                    kv_len=kv_len)
     use_flash = T >= _FLASH_MIN_T and S > 1
     if use_flash:
         if causal and S == T and kv_len is None and S >= 2 * _FLASH_MIN_T:
@@ -198,6 +204,48 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
     return sdpa(q, k, v, causal=causal, scale=scale, kv_len=kv_len)
+
+
+def _attention_on_shards(q, k, v, *, causal: bool, scale: float,
+                         kv_len) -> torch.Tensor:
+    """The plain path for S > 1 under a mesh, run on each rank's block
+    with ``local_map`` (DTensor ops inside the blockwise loops would cost
+    a dispatch each).  The layout is the reference's at its attention
+    core: heads on the model axis when both head counts divide it, else
+    query rows (``seq_tp``) with K/V whole; batch on its axes.  A rank's
+    causal mask starts at its first query row."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = current_mesh()
+    B, S, H, hd = q.shape
+    by_heads = H % model_axis() == 0 and k.shape[2] % model_axis() == 0
+    q_axes = ("batch", None, "heads", None) if by_heads \
+        else ("batch", "seq_tp", None, None)
+    kv_axes = ("batch", None, "heads" if by_heads else None, None)
+    q_pl = named_sharding(q.shape, q_axes, mesh)
+    kv_pl = named_sharding(k.shape, kv_axes, mesh)
+    offset, rows, coord = 0, 1, mesh.get_coordinate()
+    for m, pl in enumerate(q_pl):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            offset, rows = offset * mesh.size(m) + coord[m], \
+                rows * mesh.size(m)
+    offset *= S // rows
+
+    def body(ql, kl, vl):
+        if offset == 0:
+            return attention(ql, kl, vl, causal=causal, scale=scale,
+                             kv_len=kv_len)
+        if kl.shape[1] >= _FLASH_MIN_T:
+            return _flash_sdpa(ql, kl, vl, causal=causal, scale=scale,
+                               kv_len=kv_len, q_offset=offset)
+        G = ql.shape[2] // kl.shape[2]
+        return sdpa(ql, kl.repeat_interleave(G, dim=2),
+                    vl.repeat_interleave(G, dim=2), causal=causal,
+                    scale=scale, kv_len=kv_len, q_offset=offset)
+
+    return local_map(body, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def _causal_split_flash(q, k, v, *, scale: float, depth: int,
@@ -237,26 +285,73 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator,
     return w
 
 
+def _heads(t: torch.Tensor, n: int, hd: int, *, query: bool
+           ) -> torch.Tensor:
+    """A projection (B, S, n * hd) as (B, S, n, hd).  Under a mesh its
+    last dim is laid out on whole heads first, as :func:`_shard_q` and
+    :func:`_shard_kv` lay out the result (a model-axis split of n * hd
+    that cuts through a head cannot be viewed as heads): on ``heads``
+    when n divides the model axis, else replicated, with query rows on
+    ``seq_tp`` for a query."""
+    B, S = t.shape[:2]
+    if n % model_axis() == 0:
+        t = shard(t, "batch", None, "heads")
+    else:
+        t = shard(t, "batch", "seq_tp" if query else None, None)
+    return t.reshape(B, S, n, hd)
+
+
+def _merge_heads(out: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd), laid out under a mesh as
+    :func:`_heads` lays out a query projection, so the gradient that
+    comes back through the output projection is laid out so too (a
+    model-axis split of H * hd that cuts through a head cannot be viewed
+    back as heads)."""
+    B, S, H, hd = out.shape
+    flat = out.reshape(B, S, H * hd)
+    if H % model_axis() == 0:
+        return shard(flat, "batch", None, "heads")
+    return shard(flat, "batch", "seq_tp", None)
+
+
+def _shard_q(q: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd): heads-TP when divisible, else sequence-TP."""
+    if q.shape[2] % model_axis() == 0:
+        return shard(q, "batch", None, "heads", None)
+    return shard(q, "batch", "seq_tp", None, None)
+
+
+def _shard_kv(k: torch.Tensor) -> torch.Tensor:
+    """(B, T, KV, hd) train-time K/V: batch-sharded, heads when
+    divisible."""
+    heads = "heads" if k.shape[2] % model_axis() == 0 else None
+    return shard(k, "batch", None, heads, None)
+
+
+CACHE_AXES = ("batch", "kv_seq", None, None)    # (B, T, KV, hd) K/V caches
+MLA_CACHE_AXES = ("batch", "kv_seq", None)      # (B, T, r) latent caches
+
+
 def _qkv(cfg: ModelConfig, w, x, positions):
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = dense(x, w["wq"], w.get("bq")).reshape(B, S, H, hd)
-    k = dense(x, w["wk"], w.get("bk")).reshape(B, S, KV, hd)
-    v = dense(x, w["wv"], w.get("bv")).reshape(B, S, KV, hd)
+    q = _heads(dense(x, w["wq"], w.get("bq")), H, hd, query=True)
+    k = _heads(dense(x, w["wk"], w.get("bk")), KV, hd, query=False)
+    v = _heads(dense(x, w["wv"], w.get("bv")), KV, hd, query=False)
     if cfg.pos_embed == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return _shard_q(q), _shard_kv(k), _shard_kv(v)
 
 
 def attn_train(cfg: ModelConfig, w, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True
                ) -> torch.Tensor:
     """Full-sequence self-attention: x (B, S, D) at ``positions``."""
-    B, S, D = x.shape
     q, k, v = _qkv(cfg, w, x, positions)
-    out = attention(q, k, v, causal=causal, use_kernels=cfg.use_kernels)
-    return dense(out.reshape(B, S, cfg.n_heads * cfg.hd), w["wo"])
+    out = _shard_q(attention(q, k, v, causal=causal,
+                             use_kernels=cfg.use_kernels))
+    return dense(_merge_heads(out), w["wo"])
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -277,11 +372,12 @@ def attn_decode(cfg: ModelConfig, w, x: torch.Tensor, cache: Dict,
     pos = int(pos)
     positions = torch.full((S,), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(cfg, w, x, positions)
-    cache["k"][:, pos:pos + S] = k_new
-    cache["v"][:, pos:pos + S] = v_new
-    out = attention(q, cache["k"], cache["v"], causal=False, kv_len=pos + 1,
-                    use_kernels=cfg.use_kernels)
-    y = dense(out.reshape(B, S, cfg.n_heads * cfg.hd), w["wo"])
+    write_rows(cache["k"], 1, pos, k_new)
+    write_rows(cache["v"], 1, pos, v_new)
+    out = attention(q, shard(cache["k"], *CACHE_AXES),
+                    shard(cache["v"], *CACHE_AXES), causal=False,
+                    kv_len=pos + 1, use_kernels=cfg.use_kernels)
+    y = dense(_merge_heads(out), w["wo"])
     return y, cache
 
 
@@ -428,17 +524,17 @@ def _mla_attend(cfg: ModelConfig, w, x: torch.Tensor, c_kv: torch.Tensor,
     B, S = x.shape[:2]
     T, H = c_kv.shape[1], cfg.n_heads
     qk = m.qk_nope_dim + m.qk_rope_dim
-    q = dense(x, w["wq"]).reshape(B, S, H, qk)
+    q = _heads(dense(x, w["wq"]), H, qk, query=True)
     q_rope = rope(q[..., m.qk_nope_dim:], positions, cfg.rope_theta)
-    k_nope = dense(c_kv, w["w_uk"]).reshape(B, T, H, m.qk_nope_dim)
-    v = dense(c_kv, w["w_uv"]).reshape(B, T, H, m.v_head_dim)
+    k_nope = _heads(dense(c_kv, w["w_uk"]), H, m.qk_nope_dim, query=False)
+    v = _heads(dense(c_kv, w["w_uv"]), H, m.v_head_dim, query=False)
     q_full = torch.cat([q[..., :m.qk_nope_dim], q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, T, H, m.qk_rope_dim)], dim=-1)
     out = attention(q_full, k_full, v, causal=causal,
                     scale=1.0 / math.sqrt(qk), kv_len=kv_len,
                     use_kernels=False)
-    return dense(out.reshape(B, S, H * m.v_head_dim), w["wo"])
+    return dense(_merge_heads(out), w["wo"])
 
 
 def mla_train(cfg: ModelConfig, w, x: torch.Tensor,
@@ -468,9 +564,10 @@ def mla_decode(cfg: ModelConfig, w, x: torch.Tensor, cache: Dict,
     pos = int(pos)
     positions = torch.full((S,), pos, dtype=torch.int32, device=x.device)
     c_new, kr_new = _mla_latent(cfg, w, x, positions)
-    cache["ckv"][:, pos:pos + S] = c_new
-    cache["krope"][:, pos:pos + S] = kr_new
-    y = _mla_attend(cfg, w, x, cache["ckv"], cache["krope"], positions,
+    write_rows(cache["ckv"], 1, pos, c_new)
+    write_rows(cache["krope"], 1, pos, kr_new)
+    y = _mla_attend(cfg, w, x, shard(cache["ckv"], *MLA_CACHE_AXES),
+                    shard(cache["krope"], *MLA_CACHE_AXES), positions,
                     causal=False, kv_len=pos + 1)
     return y, cache
 
@@ -483,10 +580,9 @@ init_cross = init_attn  # the same weights; biases, if any, are not used
 def cross_kv(cfg: ModelConfig, w, media: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K/V (B, M, KV, hd) of media or encoder embeddings (B, M, D)."""
-    B, M, _ = media.shape
     KV, hd = cfg.n_kv_heads, cfg.hd
-    return (dense(media, w["wk"]).reshape(B, M, KV, hd),
-            dense(media, w["wv"]).reshape(B, M, KV, hd))
+    return (_heads(dense(media, w["wk"]), KV, hd, query=False),
+            _heads(dense(media, w["wv"]), KV, hd, query=False))
 
 
 def cross_train(cfg: ModelConfig, w, x: torch.Tensor,
@@ -494,12 +590,11 @@ def cross_train(cfg: ModelConfig, w, x: torch.Tensor,
     """x (B, S, D) attends every row of ``media`` (B, M, D), no mask and
     no RoPE: ``flash_attention(causal=False)`` with T = M under
     ``cfg.use_kernels``."""
-    B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
-    q = dense(x, w["wq"]).reshape(B, S, H, hd)
+    q = _heads(dense(x, w["wq"]), H, hd, query=True)
     k, v = cross_kv(cfg, w, media)
     out = attention(q, k, v, causal=False, use_kernels=cfg.use_kernels)
-    return dense(out.reshape(B, S, H * hd), w["wo"])
+    return dense(_merge_heads(out), w["wo"])
 
 
 def cross_decode(cfg: ModelConfig, w, x: torch.Tensor,
@@ -507,9 +602,8 @@ def cross_decode(cfg: ModelConfig, w, x: torch.Tensor,
     """One decode step's cross-attention against the media K/V the
     prefill cached: ``decode_attention`` over all M rows under
     ``cfg.use_kernels``."""
-    B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd
-    q = dense(x, w["wq"]).reshape(B, S, H, hd)
+    q = _heads(dense(x, w["wq"]), H, hd, query=True)
     out = attention(q, kv[0], kv[1], causal=False,
                     use_kernels=cfg.use_kernels)
-    return dense(out.reshape(B, S, H * hd), w["wo"])
+    return dense(_merge_heads(out), w["wo"])

@@ -30,6 +30,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype, mlp_apply, mm, norm_apply
 from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.parallel.api import shard, write_rows
 
 __all__ = ["Sig", "layer_sigs", "schedule", "init_norm", "init_mlp",
            "init_layer", "init_layer_cache", "apply_layer",
@@ -145,7 +146,7 @@ def _pad_cache(x: torch.Tensor, max_len: int) -> torch.Tensor:
         raise ValueError(f"prefill of {x.shape[1]} rows does not fit a cache "
                          f"of max_len {max_len}")
     out = x.new_zeros((x.shape[0], max_len) + tuple(x.shape[2:]))
-    out[:, :x.shape[1]] = x
+    write_rows(out, 1, 0, x)
     return out
 
 
@@ -156,10 +157,12 @@ def _attn_prefill_cache(cfg: ModelConfig, w, x: torch.Tensor,
     length."""
     if cfg.mla:
         c_kv, k_rope = attn._mla_latent(cfg, w, x, positions)
-        return {"ckv": _pad_cache(c_kv, max_len),
-                "krope": _pad_cache(k_rope, max_len)}
+        return {"ckv": shard(_pad_cache(c_kv, max_len), *attn.MLA_CACHE_AXES),
+                "krope": shard(_pad_cache(k_rope, max_len),
+                               *attn.MLA_CACHE_AXES)}
     _, k, v = attn._qkv(cfg, w, x, positions)
-    return {"k": _pad_cache(k, max_len), "v": _pad_cache(v, max_len)}
+    return {"k": shard(_pad_cache(k, max_len), *attn.CACHE_AXES),
+            "v": shard(_pad_cache(v, max_len), *attn.CACHE_AXES)}
 
 
 def _ssm_prefill_cache(cfg: ModelConfig, w, x: torch.Tensor) -> Dict:
@@ -264,7 +267,10 @@ def apply_layer(cfg: ModelConfig, sig: Sig, w, h: torch.Tensor, *,
             y = y + attn.cross_train(cfg, w["cross"], xc, media)
     else:
         raise ValueError(f"unknown mixer {mixer!r}")
-    h, aux = _ffn(cfg, sig, w, h + y)
+    # laid out like the layer boundary: DTensor carries a partial sum
+    # through linear ops where GSPMD reduces it, and a product of a
+    # partial input with a gathered weight repeats on every rank
+    h, aux = _ffn(cfg, sig, w, shard(h + y, "batch", "seq", None))
     if mode == "decode":
         return h, new_cache
     return (h, aux) if mode == "train" else (h, aux, new_cache)

@@ -40,6 +40,15 @@ autograd on the plain path (``use_kernels=False``; the kernels have no
 backward, as the reference's Pallas kernels have none).  In a train
 forward that autograd records each layer runs under :func:`_remat`,
 the config's activation-checkpoint policy.
+
+Sharding: :func:`param_axes_rule` and :func:`cache_axes_rule` give each
+parameter and cache leaf its logical axes (the reference's leaf rules,
+keyed on the same leaf names; the port's per-layer leaves have no
+leading stack dim); :func:`param_logical_axes` and
+:func:`cache_logical_axes` map whole trees.  Under a mesh
+(:func:`repro_torch.parallel.set_mesh`) with DTensor parameters the
+residual stream is laid out at the reference's sites (:func:`shard`);
+without one every annotation is the identity.
 """
 
 from __future__ import annotations
@@ -58,13 +67,15 @@ from repro_torch.models.blocks import (apply_layer, apply_layer_paged,
                                        init_layer_cache, init_norm,
                                        layer_sigs)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (cdtype, embed_apply, norm_apply,
-                                       unembed_apply)
-from repro_torch.tree import leaves
+from repro_torch.models.layers import (cdtype, embed_apply, model_axis,
+                                       norm_apply, unembed_apply)
+from repro_torch.parallel.api import current_mesh, mesh_sizes, shard
+from repro_torch.tree import leaves, tree_map_with_path
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill", "paged_decode_step", "paged_prefill_step",
-           "LEARNED_POS_LEN"]
+           "LEARNED_POS_LEN", "param_axes_rule", "param_logical_axes",
+           "cache_axes_rule", "cache_logical_axes"]
 
 LEARNED_POS_LEN = 32768  # rows of the learned-position table, as the reference
 ENC_SIG = ("enc_attn", False)
@@ -140,13 +151,81 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     return p
 
 
+# ---------------------------------------------------------------------------
+# logical axes for sharding (leaf name -> trailing-dims rule; any leading
+# dims get None)
+# ---------------------------------------------------------------------------
+
+_LEAF_RULES = {
+    "embed": ("vocab", "fsdp"),
+    "unembed": ("fsdp", "vocab"),
+    "pos_embed": (None, "fsdp"),
+    "pos": (None, "fsdp"),
+    "wq": ("fsdp", "tp"), "wk": ("fsdp", "tp"), "wv": ("fsdp", "tp"),
+    "wo": ("tp", "fsdp"),
+    "wi": ("fsdp", "tp"), "wg": ("fsdp", "tp"),
+    "w_dkv": ("fsdp", None), "w_uk": (None, "tp"), "w_uv": (None, "tp"),
+    "router": ("fsdp", None),
+    "we_g": ("expert", "fsdp", None), "we_i": ("expert", "fsdp", None),
+    "we_o": ("expert", None, "fsdp"),
+    "in_proj": ("fsdp", "tp"), "out_proj": ("tp", "fsdp"),
+    "conv_w": (None, "tp"), "conv_b": ("tp",),
+}
+
+
+def _leaf_name(path) -> str:
+    for p in reversed(path):
+        if isinstance(p, str):
+            return p
+    return ""
+
+
+def _trailing(core: Tuple, nd: int) -> Tuple:
+    if len(core) > nd:
+        core = core[len(core) - nd:]
+    return (None,) * (nd - len(core)) + tuple(core)
+
+
+def param_axes_rule(path, leaf) -> Tuple:
+    """Logical axes of one parameter leaf, by its name (the last string
+    key of ``path``) and rank."""
+    return _trailing(_LEAF_RULES.get(_leaf_name(path), ()), len(leaf.shape))
+
+
+def param_logical_axes(params) -> Dict:
+    """Tree of logical-axis tuples matching ``params``."""
+    return tree_map_with_path(param_axes_rule, params)
+
+
+def cache_axes_rule(path, leaf) -> Tuple:
+    """Logical axes of one decode-cache leaf."""
+    name = _leaf_name(path)
+    if name in ("k", "v", "ck", "cv"):
+        core = ("batch", "kv_seq", None, None)
+    elif name in ("ckv", "krope"):
+        core = ("batch", "kv_seq", None)
+    elif name == "conv":
+        core = ("batch", None, "tp")
+    elif name == "state":
+        core = ("batch", "heads", None, None)
+    else:
+        core = ()
+    return _trailing(core, len(leaf.shape))
+
+
+def cache_logical_axes(cfg: ModelConfig, cache) -> List:
+    """Logical axes of the decode cache, leaf for leaf."""
+    return tree_map_with_path(cache_axes_rule, cache)
+
+
 def _encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
     """The encoder over frame embeddings (B, F, D): learned positions,
     ``cfg.encoder.n_layers`` non-causal self-attention blocks (flash
     attention with S = T = F under ``cfg.use_kernels``), a final norm."""
     enc = params["encoder"]
     F = frames.shape[1]
-    h = frames.to(cdtype(cfg)) + enc["pos"][None, :F]
+    h = shard(frames.to(cdtype(cfg)) + enc["pos"][None, :F], "batch", None,
+              None)
     positions = torch.arange(F, dtype=torch.int32, device=frames.device)
 
     def layer(hh, w):
@@ -223,13 +302,16 @@ def forward(cfg: ModelConfig, params, batch: Dict, *, mode: str = "train",
                 apply_layer, cfg, sig, mode="train", positions=positions,
                 media=media))
             h, a = layer(w, h)
+            h = shard(h, "batch", "seq", None)
             aux = aux + a
         if with_hidden:
-            return None, aux, norm_apply(cfg, params["final_norm"], h)
+            return None, aux, shard(norm_apply(cfg, params["final_norm"], h),
+                                    "batch", "seq", None)
         return _logits_out(cfg, params, h), aux
     for sig, w in zip(layer_sigs(cfg), params["layers"]):
         h, a, c = apply_layer(cfg, sig, w, h, mode=mode, positions=positions,
                               media=media, max_len=max_len)
+        h = shard(h, "batch", "seq", None)
         aux = aux + a
         cache.append(c)
     # only the last position's logits are needed: slice before the unembed
@@ -258,13 +340,23 @@ def _chunked_ce(cfg: ModelConfig, h: torch.Tensor, w_un: torch.Tensor,
     reference forms it, not a gather."""
     B, S, _ = h.shape
     V = w_un.shape[-1]
-    while n_chunks > 1 and B % n_chunks:
+    # chunks stay divisible by the batch-shard count under a mesh
+    mesh = current_mesh()
+    shard_n = 1
+    if mesh is not None:
+        sizes = mesh_sizes(mesh)
+        shard_n = sizes.get("data", 1) * sizes.get("pod", 1)
+    while n_chunks > 1 and (B % n_chunks or (B // n_chunks) % shard_n):
         n_chunks -= 1
     bc = B // n_chunks
     vocab = torch.arange(V, device=h.device)
 
     def chunk_ce(h_c, lab_c):
         logits = unembed_apply(cfg, w_un, h_c)               # (bc, S, V) f32
+        if V % model_axis() == 0:
+            logits = shard(logits, "batch", None, "vocab")
+        else:
+            logits = shard(logits, "batch", "seq", None)
         lse = torch.logsumexp(logits, dim=-1)
         eq = lab_c[..., None] == vocab
         correct = torch.where(eq, logits, 0.0).sum(-1)
@@ -307,6 +399,7 @@ def decode_step(cfg: ModelConfig, params, cache: List[Dict],
     h = _embed_in(cfg, params, tokens, pos0=pos)
     for sig, w, c in zip(layer_sigs(cfg), params["layers"], cache):
         h, _ = apply_layer(cfg, sig, w, h, mode="decode", cache=c, pos=pos)
+        h = shard(h, "batch", "seq", None)
     return _logits_out(cfg, params, h), cache
 
 

@@ -20,8 +20,10 @@ Two paths for the three expert products, as in the reference:
 * otherwise :func:`repro_torch.models.layers.mm`, whose gate and up
   outputs stay in f32.
 
-The reference's sharding annotations have no counterpart here; the
-sharded path waits for the parallel slice (ROADMAP queue 1 item 5).
+Under a mesh (:func:`repro_torch.parallel.set_mesh`) the reference's
+layout annotations are kept at its sites (:func:`shard`: tokens on
+``batch``, slot buffers on ``batch`` x ``expert``) and ``moe_gmm`` runs
+through its sharded wrapper, one expert block a shard.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import moe_gmm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype, dense, mm
+from repro_torch.parallel.api import shard
 
 __all__ = ["init_moe", "moe_apply", "router_topk", "capacity"]
 
@@ -149,6 +152,7 @@ def moe_apply(cfg: ModelConfig, w, x: torch.Tensor
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
     C = capacity(cfg, S)
+    x = shard(x, "batch", None, "tp")
     gates, idx, aux = router_topk(cfg, w["router"], x)
 
     idx_flat = idx.reshape(B, S * K)                   # assignment order: (t, k)
@@ -158,11 +162,11 @@ def moe_apply(cfg: ModelConfig, w, x: torch.Tensor
     tok_of_src = src // K                                             # (B, E*C)
     xbuf = torch.gather(x, 1, tok_of_src[..., None].expand(-1, -1, D))
     xbuf = xbuf * used[..., None].to(x.dtype)
-    xbuf = xbuf.reshape(B, E, C, D)
+    xbuf = shard(xbuf.reshape(B, E, C, D), "batch", "expert", None, None)
 
     h = F.silu(_expert_mm(xbuf, w["we_g"], use_kernels=cfg.use_kernels)) \
         * _expert_mm(xbuf, w["we_i"], use_kernels=cfg.use_kernels)
-    h = h.to(x.dtype)
+    h = shard(h.to(x.dtype), "batch", "expert", None, None)
     ybuf = _expert_mm(h, w["we_o"], use_kernels=cfg.use_kernels,
                       out_dtype=x.dtype)
 
@@ -171,10 +175,11 @@ def moe_apply(cfg: ModelConfig, w, x: torch.Tensor
     y_k = torch.gather(ybuf.reshape(B, E * C, D), 1,
                        slot[..., None].expand(-1, -1, D))             # (B,S*K,D)
     gk = (gates.reshape(B, S * K) * keep.float()).to(x.dtype)
+    y_k = shard(y_k, "batch", None, "tp")
     y = (y_k * gk[..., None]).reshape(B, S, K, D).sum(dim=2)
 
     if m.n_shared:
         ws = w["shared"]
         hs = F.silu(dense(x, ws["wg"])) * dense(x, ws["wi"])
         y = y + dense(hs, ws["wo"])
-    return y, aux * m.router_aux_weight
+    return shard(y, "batch", "seq", None), aux * m.router_aux_weight

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import mamba2_ssd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype, dense
+from repro_torch.parallel.api import assign, shard
 
 __all__ = ["init_ssm", "ssm_train", "ssm_decode", "init_ssm_cache",
            "ssd_chunked", "ssd_step", "d_inner_of"]
@@ -207,8 +208,10 @@ def _ssm_inputs(cfg: ModelConfig, w, xbc: torch.Tensor, dtr: torch.Tensor):
 def _scan(cfg: ModelConfig, w, xbc_raw: torch.Tensor, dtr: torch.Tensor):
     """Conv, then the chunked SSD scan over a whole sequence: returns
     xh (B, S, nh, hd), y (B, S, nh, hd) and the final f32 state."""
-    xbc = _conv_train(w, xbc_raw, cfg.ssm.d_conv)
+    xbc = shard(_conv_train(w, xbc_raw, cfg.ssm.d_conv), "batch", None, "tp")
     xh, Bg, Cg, dt, A = _ssm_inputs(cfg, w, xbc, dtr)
+    xh = shard(xh, "batch", None, "heads", None)
+    dt = shard(dt, "batch", None, "heads")
     y, h = ssd_chunked(xh, dt, A, Bg, Cg, cfg.ssm.chunk,
                        use_kernels=cfg.use_kernels)
     return xh, y, h
@@ -221,7 +224,7 @@ def ssm_train(cfg: ModelConfig, w, x: torch.Tensor) -> torch.Tensor:
     z, xs, Bm, Cm, dtr = _split_proj(cfg, dense(x, w["in_proj"]))
     xh, y, _ = _scan(cfg, w, torch.cat([xs, Bm, Cm], dim=-1), dtr)
     y = y + w["D"].float()[:, None] * xh.float()
-    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = shard(y.reshape(B, S, d_in).to(x.dtype), "batch", None, "tp")
     return dense(_gated_norm(cfg, w["norm"], y, z), w["out_proj"])
 
 
@@ -258,6 +261,6 @@ def ssm_decode(cfg: ModelConfig, w, x: torch.Tensor, cache: Dict,
     y = y + (w["D"].float()[:, None] * xh.float()).to(y.dtype)
     y = y.reshape(B, 1, d_in)
     out = dense(_gated_norm(cfg, w["norm"], y, z[:, None]), w["out_proj"])
-    cache["conv"].copy_(window[:, 1:])
-    cache["state"].copy_(h_new)
+    assign(cache["conv"], window[:, 1:])
+    assign(cache["state"], h_new)
     return out, cache

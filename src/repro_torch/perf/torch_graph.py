@@ -110,7 +110,11 @@ def _hlo_dtype(dtype: torch.dtype) -> str:
 
 def _nbytes(t: torch.Tensor) -> int:
     """A tensor's stored elements times its element size: a broadcast
-    (stride-0) dim is read once, not once per index."""
+    (stride-0) dim is read once, not once per index.  A DTensor counts
+    its local block (what one device holds)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.to_local()
     n = 1
     for size, stride in zip(t.shape, t.stride()):
         if stride != 0:

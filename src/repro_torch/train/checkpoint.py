@@ -14,10 +14,11 @@
 
 Either package reads what the other writes.  :class:`Checkpointer`
 copies the tree to the host on the calling thread and writes it on a
-worker thread, joined before the next save.  The reference's restore
-onto another device mesh (``sharding_fn``) belongs to the parallel
-slice and is not ported: ``restore`` places each leaf on the device and
-in the dtype of its ``like`` leaf.
+worker thread, joined before the next save.  ``restore`` places each
+leaf on the device and in the dtype of its ``like`` leaf, or, given
+``sharding_fn``, onto a device mesh: the elastic restore of a
+checkpoint saved by one process onto a multi-rank mesh, as the
+reference's ``sharding_fn`` does.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import os
 import shutil
 import threading
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,13 +100,18 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, like, *, step: Optional[int] = None
-            ) -> Tuple[Any, int]:
+def restore(ckpt_dir, like, *, step: Optional[int] = None,
+            sharding_fn: Optional[Callable] = None) -> Tuple[Any, int]:
     """Restore the checkpoint at ``step`` (default the latest) into the
-    structure of ``like``, a tree of tensors: each leaf lands on its
-    ``like`` leaf's device in its dtype.  Raises ``FileNotFoundError``
-    when there is no checkpoint and ``ValueError`` when a key is missing
-    or a shape differs."""
+    structure of ``like``, a tree of tensors (or DTensors; their global
+    shapes are checked): each leaf lands on its ``like`` leaf's device in
+    its dtype.  ``sharding_fn(path_key, tensor)``, given the leaf's key
+    and its full host tensor (already in the ``like`` dtype), may return
+    a ``(mesh, placements)`` pair, which places the leaf on that mesh
+    (each rank keeps its own block; the device is the mesh's), a
+    DTensor, which is used as it is, or None, the default placement.
+    Raises ``FileNotFoundError`` when there is no checkpoint and
+    ``ValueError`` when a key is missing or a shape differs."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -124,9 +130,18 @@ def restore(ckpt_dir, like, *, step: Optional[int] = None
                 f"{tuple(like_leaf.shape)}")
 
     def load(path, like_leaf):
-        ent = manifest[_key(path)]
+        key = _key(path)
+        ent = manifest[key]
         t = _from_bits(np.load(d / ent["file"]), ent["dtype"], ent["shape"])
-        return t.to(device=like_leaf.device, dtype=like_leaf.dtype)
+        t = t.to(dtype=like_leaf.dtype)
+        placed = sharding_fn(key, t) if sharding_fn is not None else None
+        if placed is None:
+            return t.to(device=like_leaf.device)
+        if isinstance(placed, tuple):
+            from repro_torch.parallel.api import place
+            mesh, placements = placed
+            return place(t.to(mesh.device_type), mesh, placements)
+        return placed
 
     paths = iter(path for path, _ in flatten_with_path(like))
     return tree_map(lambda leaf: load(next(paths), leaf), like), step

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator, Tuple
 
-__all__ = ["tree_map", "leaves", "flatten_with_path"]
+__all__ = ["tree_map", "tree_map_with_path", "leaves", "flatten_with_path"]
 
 
 def tree_map(fn: Callable, tree) -> Any:
@@ -18,6 +18,17 @@ def tree_map(fn: Callable, tree) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_map_with_path(fn: Callable, tree, path: Tuple = ()) -> Any:
+    """``tree`` with every leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def flatten_with_path(tree, path: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:

@@ -338,3 +338,50 @@ def test_fleet_modules_and_example_import_clean():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["leaked"] == [] and got["main"] is True
     assert got["mods"] and all(got["mods"].values())
+
+
+PARALLEL_MODULES = ("repro_torch.parallel", "repro_torch.parallel.api",
+                    "repro_torch.parallel.compression",
+                    "repro_torch.parallel.pipeline",
+                    "repro_torch.kernels.sharded", "repro_torch.launch",
+                    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                    "repro_torch.launch.dryrun", "repro_torch.launch.roofline")
+
+_ENV_PROBE = r"""
+import importlib, json, os, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+import repro_torch.launch
+env = {k: os.environ.get(k) for k in ("XLA_FLAGS", "REPRO_CPU_F32_DOTS")}
+for name in sys.argv[2:]:
+    importlib.import_module(name)
+env_after = {k: os.environ.get(k) for k in env}
+print(json.dumps({"env": env, "env_after": env_after}))
+"""
+
+
+def test_parallel_and_launch_modules_import_clean_and_first():
+    """The parallel and launch slice's modules are part of the walk above
+    and each imports cleanly as the first of the port; importing
+    ``repro_torch.launch`` (or any launch module) writes no
+    ``XLA_FLAGS`` or ``REPRO_CPU_F32_DOTS``, where the reference's
+    dry-run module writes both."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "XLA_FLAGS", "REPRO_CPU_F32_DOTS")}
+    out = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["leaked"] == []
+    for mod in PARALLEL_MODULES:
+        assert mod in got["modules"]
+    out = subprocess.run([sys.executable, "-c", _FIRST_PROBE, str(ROOT),
+                          *PARALLEL_MODULES], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"ok": {n: True for n in PARALLEL_MODULES}, "leaked": []}
+    out = subprocess.run([sys.executable, "-c", _ENV_PROBE, str(ROOT),
+                          *PARALLEL_MODULES], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    unset = {"XLA_FLAGS": None, "REPRO_CPU_F32_DOTS": None}
+    assert got == {"env": unset, "env_after": unset}
