@@ -221,7 +221,8 @@ depends on it, so that one run reports every such failure):
 24. the parallel layer (``repro_torch.parallel``, ``kernels.sharded``,
     ``repro_torch.launch``), run right after phase 23 on phase 3's
     qwen2-7b weights: (a) a one-rank NCCL process group (a ``FileStore``
-    in a temporary directory) and a (1, 1) ("data", "model") mesh; the
+    in a temporary directory) and a (1, 1) ("data", "model") mesh, which
+    phase 25 uses too; the
     weights placed by ``param_axes_rule`` as DTensors (no copy); a
     prefill of 4 x 1024-token prompts and 4 decode steps on the kernel
     path through the sharded wrappers, teacher-forced along the same
@@ -237,15 +238,49 @@ depends on it, so that one run reports every such failure):
     through the sharded path, each one shard body, held to
     its plain version by phase 2's rule; (c) ``quantize``,
     ``int8_psum`` (NCCL) and three ``compress_decompress`` steps on the
-    card equal to the CPU's (gloo) bit for bit; (d) in four
+    card equal to the CPU's (gloo) bit for bit; (d) in five
     subprocesses (a ``fake`` process group cannot share a process with
     NCCL's), ``python -m repro_torch.launch.dryrun`` of qwen2-7b's
-    train_4k, prefill_32k and decode_32k and mamba2-370m's long_500k on
+    train_4k, prefill_32k and decode_32k, mamba2-370m's long_500k and
+    deepseek-v2-lite-16b's decode_32k (the cheapest MoE cell) on
     the (16, 16) production mesh of a 256-rank fake group, priced on the
     H100 by ``repro_torch.launch.roofline``: per-device GiB against the
     card's memory, FLOPs, bytes, wire bytes, the roofline's three times
     and bound; every FLOP and byte count > 0, and collective bytes > 0
-    wherever the model axis shards a weight; (e) the phase under 120 s.
+    wherever the model axis shards a weight; (e) the four contracted
+    kernels on a real shard's shapes, on this card with no process
+    group: the operands cut into the local blocks a (2, 2) ("data",
+    "model") mesh's ranks get (``kernels.sharded.operand_specs``),
+    flash at phase (a)'s prefill (qwen2-7b's 28/4 heads cut to 14/2,
+    batch 4 to 2), decode at (a)'s B = 4 over 2048 and 32768 cache rows
+    (the latter takes another split of the cache on a block),
+    ``moe_gmm`` at qwen3-moe's decode gate/up (128 experts cut to 64)
+    and ``mamba2_ssd`` at (b)'s shape (32 heads cut to 16), each kernel
+    launched on the four blocks, put back together and held to the
+    unsharded launch by the bf16 rule (1e-2 + 2^-7 |x|; the SSD's f32
+    state 1e-3 + 1e-4 |x|), the local shapes and largest error printed;
+    (f) ``scripts/torch_memdebug.py`` on qwen2-7b's prefill_32k in a
+    subprocess: its largest byte movers by aten op and model site; (d)
+    and (f) start first and are read last; (g) the phase under 120 s.
+25. sharded MoE, on phases 7-10's qwen3-moe weights (8 layers) and
+    phase 24's mesh: phase 24 (a)'s prefill and decode steps through
+    the sharded wrappers against the same steps unsharded: flash,
+    decode and ``moe_gmm`` launched n_layers x prefills, n_layers x steps
+    and 3 x n_layers x (prefills + steps), each in its own shard body;
+    the logits of the prefill and every step equal to the unsharded
+    path's (on a one-rank mesh every block is the whole tensor); the
+    decode step's wall and device time sharded and unsharded; under
+    120 s.  Then the mesh is closed.
+26. the example and script twins: ``examples/torch_serve_demo.py``,
+    ``torch_serve_resilience.py`` and ``torch_quickstart.py``, each
+    ``main()`` at the reference's defaults on the card (the kernel
+    path), with the launches of the kernels its path runs
+    (``paged_decode_attention`` for the paged engine of the first two,
+    whose prefill chunks attend on the plain path as the reference's
+    do; flash and decode for the quickstart's generation); the
+    resilience demo's act 3 held by the near-tie rule with its pool
+    reclaimed; ``scripts/torch_check_device_specs.py`` exiting 0; under
+    240 s.
 
 Each phase prints its wall time.  The last three lines are the card's
 name and power limit, a JSON record of every kernel (with its timed
@@ -379,10 +414,34 @@ SHARDED = dict(batch=4, prompt=1024, max_len=2048, n_steps=4, seed=16,
                # (b): mamba2-370m's batch prefill (phase 12) and qwen3-moe's
                # decode gate/up (phase 7), random operands from the seed
                ssd=dict(B=4, S=1024, seed=17), gmm=dict(C=32, seed=18),
+               # (e): (a)'s prefill and decode shapes, the decode also over
+               # decode_32k's cache, and (b)'s
+               blocks=dict(T=(2048, 32768), seed=20),
                max_s=120)
-# (d): the dry-run cells priced on the production (16, 16) mesh
+# (e): the contracted kernels on each local block of this mesh, on one card
+MESH_BLOCKS = {"data": 2, "model": 2}
+BLOCK_ATOL, BLOCK_RTOL = 1e-2, 2.0 ** -7   # the bf16 rule (one ulp)
+STATE_ATOL, STATE_RTOL = 1e-3, 1e-4        # the SSD's f32 state
+# (d): the dry-run cells priced on the production (16, 16) mesh; the MoE
+# cell is among the cheapest of the ten MoE cells on the CPU (deepseek
+# decode_32k 6.5-6.9 s, level with jamba's 6.6-7.3 s; qwen3-moe's 15.0 s,
+# every MoE prefill and train cell 40-1231 s) and runs MLA beside MoE
 DRYRUN_CELLS = (("qwen2-7b", "train_4k"), ("qwen2-7b", "prefill_32k"),
-                ("qwen2-7b", "decode_32k"), ("mamba2-370m", "long_500k"))
+                ("qwen2-7b", "decode_32k"), ("mamba2-370m", "long_500k"),
+                ("deepseek-v2-lite-16b", "decode_32k"))
+# (f): scripts/torch_memdebug.py on one dry-run cell
+MEMDEBUG = dict(arch="qwen2-7b", shape="prefill_32k", top=12, max_s=400)
+# phase 25: qwen3-moe (phases 7-10's weights) through the sharded wrappers
+# on phase 24's mesh, the steps of phase 24 (a)
+SHARDED_MOE = dict(seed=21, max_s=120)
+# phase 26: the example twins at their reference defaults, and the lint
+TWINS = dict(examples=("torch_serve_demo", "torch_serve_resilience",
+                       "torch_quickstart"),
+             kernels={"torch_serve_demo": ("paged_decode_attention",),
+                      "torch_serve_resilience": ("paged_decode_attention",),
+                      "torch_quickstart": ("flash_attention",
+                                           "decode_attention")},
+             max_s=240)
 FLEET_MIXES = {"decode_heavy": [(6, 24, 0), (9, 30, 0), (7, 18, 1)],
                "prefill_heavy": [(130, 3, 0), (120, 2, 0), (96, 2, 1)],
                "gapped": [(8, 6, 0), (10, 5, 14), (12, 4, 30)],
@@ -3164,18 +3223,55 @@ def phase_fleet(torch, cfg, params, paged):
 
 # -- phase 24: the parallel layer on the card ---------------------------------
 
-def start_dryruns(out_dir: Path):
-    """(d)'s cells, one ``repro_torch.launch.dryrun`` subprocess each,
-    started together (a ``fake`` process group cannot share a process
-    with NCCL's; the children see no card)."""
+BACKGROUND: list = []   # subprocesses phase 24 starts; main stops them
+
+
+def cpu_subprocess(*args) -> subprocess.Popen:
+    """A child of this run that sees no card (a ``fake`` process group
+    cannot share a process with NCCL's), stopped by ``stop_background``
+    if the run ends first."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
-    return [((arch, shape), subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", str(out_dir)], env=env, cwd=str(ROOT),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for arch, shape in DRYRUN_CELLS]
+    proc = subprocess.Popen([sys.executable, *args], env=env, cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    BACKGROUND.append(proc)
+    return proc
+
+
+def stop_background() -> None:
+    for proc in BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+    BACKGROUND.clear()
+
+
+def start_dryruns(out_dir: Path):
+    """(d)'s cells, one ``repro_torch.launch.dryrun`` subprocess each,
+    started together."""
+    return [((arch, shape), cpu_subprocess(
+        "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+        "--out", str(out_dir))) for arch, shape in DRYRUN_CELLS]
+
+
+def finish_memdebug(proc) -> None:
+    """(f): ``scripts/torch_memdebug.py``'s report, printed."""
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=MEMDEBUG["max_s"])
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise Failure(f"memdebug {MEMDEBUG['arch']} {MEMDEBUG['shape']}: "
+                      f"no report in {MEMDEBUG['max_s']} s")
+    check(proc.returncode == 0, f"memdebug (rc {proc.returncode}): "
+          f"{err[-1500:]}")
+    print(f"memdebug {MEMDEBUG['arch']} {MEMDEBUG['shape']} "
+          f"(scripts/torch_memdebug.py on the 256-rank fake group, "
+          f"waited {time.perf_counter() - t0:.1f} s more):")
+    print(out.rstrip())
 
 
 def finish_dryruns(torch, procs, out_dir: Path, card: str) -> None:
@@ -3372,120 +3468,368 @@ def compression_check(torch) -> None:
           "steps (f32 and bf16 leaves) equal bit for bit")
 
 
-def phase_sharded(torch, cfg, params, card: str):
-    """Phase 24 on phase 3's qwen2-7b weights: (a) the sharded serving
-    path on a one-rank NCCL mesh against the same steps unsharded, (b)
-    two more kernels through the sharded path, (c) compression on the
-    card, (d) the dry-run and roofline of four production cells.
-    Returns the main path's launch counts and (b)'s readings."""
-    import numpy as np
+def on_mesh_blocks(torch, kernel: str, fn, operands):
+    """``fn`` (the kernel's wrapper) launched on every local block of
+    ``operands`` that a ``MESH_BLOCKS`` mesh's ranks get from the
+    sharded path (``kernels.sharded.on_local_blocks``), on this card
+    and without a process group.  Returns (the blocks' outputs put back
+    together, the unsharded launch's outputs, the local shapes), the
+    outputs as tuples."""
+    from repro_torch.kernels.sharded import on_local_blocks
+    whole = fn(*operands)
+    got, local = on_local_blocks(kernel, fn, operands, MESH_BLOCKS, whole)
+    torch.cuda.synchronize()
+    check(len(local) == 1, f"{kernel}: uneven local blocks {local}")
+    if not isinstance(whole, tuple):
+        got, whole = (got,), (whole,)
+    return got, whole, local.pop()
+
+
+def held_on_blocks(torch, label: str, got, want, atol, rtol) -> float:
+    err = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    bad = err > atol + rtol * want.float().abs()
+    check(not bool(bad.any()), f"{label}: the reassembled blocks disagree "
+          f"with the unsharded launch: max abs err {float(err.max())} "
+          f"(atol {atol}, rtol {rtol})")
+    return float(err.max())
+
+
+def mesh_block_checks(torch):
+    """(e): the four contracted kernels at the main path's shapes, each
+    launched on every local block of a (2, 2) ("data", "model") mesh on
+    this card, reassembled and held to the unsharded launch by the bf16
+    rule (the SSD's f32 state by its f32 rule).  Returns each kernel's
+    local shapes and largest error."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     mamba2_ssd, moe_gmm)
+    from repro_torch.kernels.decode_attention import kernel_split_rows
+    g = torch.Generator(device="cuda").manual_seed(SHARDED["blocks"]["seed"])
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
+    q_cfg, m_cfg, s_cfg = (get_config(a) for a in (SERVE["arch"],
+                                                   MOE["arch"], SSM["arch"]))
+    B, S = SHARDED["batch"], SHARDED["prompt"]
+    H, KV, hd = q_cfg.n_heads, q_cfg.n_kv_heads, q_cfg.hd
+    cases = [("flash_attention", f"{q_cfg.name} prefill B={B} S=T={S} "
+              f"H={H} KV={KV} hd={hd} causal bf16",
+              lambda *t: flash_attention(*t, causal=True),
+              (randn(B, S, H, hd), randn(B, S, KV, hd), randn(B, S, KV, hd)))]
+    for T in SHARDED["blocks"]["T"]:
+        lens = torch.tensor([T, T - 1000, T // 2 + 7, 130],
+                            dtype=torch.int32, device="cuda")
+        cases.append((
+            "decode_attention", f"{q_cfg.name} decode B={B} T={T} H={H} "
+            f"KV={KV} hd={hd} lengths {lens.tolist()} bf16 (splits of "
+            f"{kernel_split_rows(T, B * KV)} rows unsharded, "
+            f"{kernel_split_rows(T, B * KV // 4)} on a block)",
+            decode_attention, (randn(B, H, hd), randn(B, T, KV, hd),
+                               randn(B, T, KV, hd), lens)))
+    E, C, K, N = m_cfg.moe.n_experts, SHARDED["gmm"]["C"], m_cfg.d_model, \
+        m_cfg.moe.d_ff_expert
+    cases.append(("moe_gmm", f"{m_cfg.name} decode gate/up E={E} C={C} "
+                  f"K={K} N={N} bf16", moe_gmm,
+                  (randn(E, C, K), randn(E, K, N, scale=1 / math.sqrt(K)))))
+    Bs, Ss = SHARDED["ssd"]["B"], SHARDED["ssd"]["S"]
+    nh, shd = 2 * s_cfg.d_model // s_cfg.ssm.head_dim, s_cfg.ssm.head_dim
+    ds, G = s_cfg.ssm.d_state, s_cfg.ssm.n_groups
+    cases.append(("mamba2_ssd", f"{s_cfg.name} prefill B={Bs} S={Ss} "
+                  f"nh={nh} hd={shd} ds={ds} G={G} bf16", mamba2_ssd,
+                  (randn(Bs, Ss, nh, shd, scale=0.5),
+                   F.softplus(randn(Bs, Ss, nh, dtype=torch.float32)),
+                   -torch.linspace(1.0, 16.0, nh, device="cuda"),
+                   randn(Bs, Ss, G, ds, scale=0.5),
+                   randn(Bs, Ss, G, ds, scale=0.5))))
+    out = {}
+    for kernel, shape, fn, operands in cases:
+        got, want, local = on_mesh_blocks(torch, kernel, fn, operands)
+        err = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            f32 = a.dtype == torch.float32
+            err = max(err, held_on_blocks(
+                torch, f"{kernel} on (2, 2) blocks ({shape}), output {i}",
+                a, b, STATE_ATOL if f32 else BLOCK_ATOL,
+                STATE_RTOL if f32 else BLOCK_RTOL))
+        print(f"{kernel} on the (2, 2) mesh's 4 local blocks ({shape}): "
+              f"local operand shapes {list(local)}; reassembled against "
+              f"the unsharded launch, max abs err {err:.4g}")
+        out.setdefault(kernel, []).append({"shape": shape,
+                                           "local": list(local),
+                                           "max_abs_err": err})
+    return out
+
+
+def open_mesh(torch):
+    """A one-rank NCCL process group (a ``FileStore`` in a temporary
+    directory) and its (1, 1) ("data", "model") mesh, which phases 24
+    and 25 share; ``close_mesh`` ends it."""
     import torch.distributed as dist
+    from repro_torch.launch.mesh import make_smoke_mesh
+    tmp = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/store",
+                            rank=0, world_size=1)
+    return make_smoke_mesh((1, 1), device="cuda"), tmp
+
+
+def close_mesh(tmp) -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    tmp.cleanup()
+
+
+def phase_sharded(torch, cfg, params, card: str, mesh):
+    """Phase 24 on phase 3's qwen2-7b weights: (a) the sharded serving
+    path on ``mesh`` (one rank) against the same steps unsharded, (b)
+    two more kernels through the sharded path, (c) compression on the
+    card, (e) the contracted kernels on a (2, 2) mesh's local blocks;
+    (d) the dry-runs and (f) memdebug in subprocesses started first and
+    read last.  Returns the main path's launch counts and (b)'s and
+    (e)'s readings."""
+    import numpy as np
     from repro_torch.kernels import (launch_counts, reset_launch_counts,
                                      sharded_launch_counts)
-    from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.models import decode_step
     from repro_torch.models.model import param_axes_rule
     from repro_torch.parallel.api import place_tree, set_mesh
     from repro_torch.serve.parity import NEAR_TIE
     t0 = time.perf_counter()
-    tmp = tempfile.TemporaryDirectory()
-    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/store",
-                            rank=0, world_size=1)
-    procs = []
-    try:
-        mesh = make_smoke_mesh((1, 1), device="cuda")
-        dparams = place_tree(params, param_axes_rule, mesh)
-        rng = np.random.default_rng(SHARDED["seed"])
-        prompt = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (SHARDED["batch"], SHARDED["prompt"])
-        ).astype(np.int32)).cuda()
-        plain, stream, _, cache, pos = sharded_streams(
-            torch, cfg, params, None, prompt)
-        reset_launch_counts()
-        got, greedy, _, dcache, _ = sharded_streams(
-            torch, cfg, dparams, mesh, prompt, stream)
-        torch.cuda.synchronize()
-        launches, bodies = launch_counts(), sharded_launch_counts()
-        n_steps = SHARDED["n_steps"]
-        want = {"flash_attention": cfg.n_layers,
-                "decode_attention": cfg.n_layers * n_steps}
-        for k, n in want.items():
-            check(launches[k] == n and bodies[k] == n,
-                  f"sharded qwen2-7b: {k} launched {launches[k]} times in "
-                  f"{bodies[k]} shard bodies, want {n} (n_layers x "
-                  f"{'prefills' if k == 'flash_attention' else 'steps'})")
-        rel = float((got[1] - plain[1]).norm() / plain[1].norm())
-        max_abs = max(float((a - b).abs().max()) for a, b in zip(got, plain))
-        print(f"sharded qwen2-7b (full width, {cfg.n_layers} layers, phase "
-              f"3's weights placed by param_axes_rule on a (1, 1) ('data', "
-              f"'model') NCCL mesh; B={SHARDED['batch']} x "
-              f"{SHARDED['prompt']}-token prompts, {n_steps} decode steps "
-              f"teacher-forced along the unsharded stream): flash "
-              f"{launches['flash_attention']} and decode "
-              f"{launches['decode_attention']} launches, all through the "
-              f"sharded wrappers; first decode step's logits relative error "
-              f"{rel:.3g} (limit {LOGIT_REL_TOL}); largest abs difference "
-              f"over the prefill and every step {max_abs:.4g}")
-        check(rel < LOGIT_REL_TOL, f"sharded decode step's logits: relative "
-              f"error {rel:.3g} >= {LOGIT_REL_TOL}")
-        n_div = 0
-        for b in range(SHARDED["batch"]):
-            diff = (greedy[b] != stream[b]).nonzero()
-            if len(diff):
-                i = int(diff[0])
-                top = torch.topk(plain[i][b], 2).values
-                margin = float(top[0] - top[1])
-                n_div += 1
-                print(f"request {b}: the sharded path's token leaves the "
-                      f"unsharded stream at step {i}, unsharded top-2 margin "
-                      f"{margin:.4g}")
-                check_later(margin < NEAR_TIE, f"sharded qwen2-7b: request "
-                            f"{b} diverges at step {i} above the near-tie "
-                            f"margin ({margin:.4g} >= {NEAR_TIE})")
-        print(f"greedy streams: {SHARDED['batch'] - n_div}/"
-              f"{SHARDED['batch']} identical to the unsharded path's")
-        tok = stream[:, -1:]
+    work = tempfile.TemporaryDirectory()
+    out_dir = Path(work.name) / "dryrun"
+    procs = start_dryruns(out_dir)
+    memdebug = cpu_subprocess(
+        str(ROOT / "scripts" / "torch_memdebug.py"), "--arch",
+        MEMDEBUG["arch"], "--shape", MEMDEBUG["shape"], "--top",
+        str(MEMDEBUG["top"]))
+    dparams = place_tree(params, param_axes_rule, mesh)
+    rng = np.random.default_rng(SHARDED["seed"])
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SHARDED["batch"], SHARDED["prompt"])
+    ).astype(np.int32)).cuda()
+    plain, stream, _, cache, pos = sharded_streams(
+        torch, cfg, params, None, prompt)
+    reset_launch_counts()
+    got, greedy, _, dcache, _ = sharded_streams(
+        torch, cfg, dparams, mesh, prompt, stream)
+    torch.cuda.synchronize()
+    launches, bodies = launch_counts(), sharded_launch_counts()
+    n_steps = SHARDED["n_steps"]
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * n_steps}
+    for k, n in want.items():
+        check(launches[k] == n and bodies[k] == n,
+              f"sharded qwen2-7b: {k} launched {launches[k]} times in "
+              f"{bodies[k]} shard bodies, want {n} (n_layers x "
+              f"{'prefills' if k == 'flash_attention' else 'steps'})")
+    rel = float((got[1] - plain[1]).norm() / plain[1].norm())
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    print(f"sharded qwen2-7b (full width, {cfg.n_layers} layers, phase "
+          f"3's weights placed by param_axes_rule on a (1, 1) ('data', "
+          f"'model') NCCL mesh; B={SHARDED['batch']} x "
+          f"{SHARDED['prompt']}-token prompts, {n_steps} decode steps "
+          f"teacher-forced along the unsharded stream): flash "
+          f"{launches['flash_attention']} and decode "
+          f"{launches['decode_attention']} launches, all through the "
+          f"sharded wrappers; first decode step's logits relative error "
+          f"{rel:.3g} (limit {LOGIT_REL_TOL}); largest abs difference "
+          f"over the prefill and every step {max_abs:.4g}")
+    check(rel < LOGIT_REL_TOL, f"sharded decode step's logits: relative "
+          f"error {rel:.3g} >= {LOGIT_REL_TOL}")
+    n_div = 0
+    for b in range(SHARDED["batch"]):
+        diff = (greedy[b] != stream[b]).nonzero()
+        if len(diff):
+            i = int(diff[0])
+            top = torch.topk(plain[i][b], 2).values
+            margin = float(top[0] - top[1])
+            n_div += 1
+            print(f"request {b}: the sharded path's token leaves the "
+                  f"unsharded stream at step {i}, unsharded top-2 margin "
+                  f"{margin:.4g}")
+            check_later(margin < NEAR_TIE, f"sharded qwen2-7b: request "
+                        f"{b} diverges at step {i} above the near-tie "
+                        f"margin ({margin:.4g} >= {NEAR_TIE})")
+    print(f"greedy streams: {SHARDED['batch'] - n_div}/"
+          f"{SHARDED['batch']} identical to the unsharded path's")
+    tok = stream[:, -1:]
 
-        def sharded_step():
-            with set_mesh(mesh):
-                return decode_step(cfg, dparams, dcache, tok, pos)[0] \
-                    .full_tensor().argmax(-1).cpu()
+    def sharded_step():
+        with set_mesh(mesh):
+            return decode_step(cfg, dparams, dcache, tok, pos)[0] \
+                .full_tensor().argmax(-1).cpu()
 
-        readings = {
-            "unsharded": profile(torch, f"unsharded decode step (B="
-                                 f"{SHARDED['batch']}, position {pos})",
-                                 lambda: decode_step(cfg, params, cache, tok,
-                                                     pos)[0].argmax(-1).cpu()),
-            "sharded": profile(torch, f"sharded decode step on the (1, 1) "
-                               f"mesh (B={SHARDED['batch']}, position {pos})",
-                               sharded_step)}
-        w0, w1 = readings["unsharded"]["wall_ms"], \
-            readings["sharded"]["wall_ms"]
-        print(f"decode step wall: sharded {w1:.2f} ms against unsharded "
-              f"{w0:.2f} ms ({w1 / w0:.2f}x; DTensor's dispatch is host "
-              f"time); card: {card}")
-        del dparams, cache, dcache
-        torch.cuda.empty_cache()
-        out_dir = Path(tmp.name) / "dryrun"
-        procs = start_dryruns(out_dir)
-        checks = sharded_kernel_checks(torch, mesh)
-        compression_check(torch)
-    except BaseException:
-        for _, proc in procs:       # stop every process this phase started
-            proc.kill()
-            proc.communicate()
-        raise
-    finally:
-        dist.destroy_process_group()
+    readings = {
+        "unsharded": profile(torch, f"unsharded decode step (B="
+                             f"{SHARDED['batch']}, position {pos})",
+                             lambda: decode_step(cfg, params, cache, tok,
+                                                 pos)[0].argmax(-1).cpu()),
+        "sharded": profile(torch, f"sharded decode step on the (1, 1) "
+                           f"mesh (B={SHARDED['batch']}, position {pos})",
+                           sharded_step)}
+    w0, w1 = readings["unsharded"]["wall_ms"], \
+        readings["sharded"]["wall_ms"]
+    print(f"decode step wall: sharded {w1:.2f} ms against unsharded "
+          f"{w0:.2f} ms ({w1 / w0:.2f}x; DTensor's dispatch is host "
+          f"time); card: {card}")
+    del dparams, cache, dcache
+    torch.cuda.empty_cache()
+    checks = sharded_kernel_checks(torch, mesh)
+    compression_check(torch)
+    blocks = mesh_block_checks(torch)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
     finish_dryruns(torch, procs, out_dir, card)
-    tmp.cleanup()
+    finish_memdebug(memdebug)
+    work.cleanup()
     took = time.perf_counter() - t0
-    print(f"phase 24 took {took:.1f} s (limit {SHARDED['max_s']} s)")
+    print(f"phase 24 took {took:.1f} s (limit {SHARDED['max_s']} s; "
+          f"{time.perf_counter() - t1:.1f} s of it waiting for the "
+          "dry-runs and memdebug)")
     check(took < SHARDED["max_s"], f"phase 24 took {took:.1f} s, over "
           f"{SHARDED['max_s']} s")
     return {"launches": {k: launches[k] for k in want},
             "bodies": {k: bodies[k] for k in want}, "checks": checks,
-            "readings": readings}
+            "blocks": blocks, "readings": readings}
+
+
+def phase_sharded_moe(torch, cfg, params, mesh, card: str):
+    """Phase 25 on phases 7-10's qwen3-moe weights and phase 24's mesh:
+    phase 24 (a)'s prefill and decode steps through the sharded
+    wrappers, held to the same steps unsharded; ``moe_gmm`` launched 3 x
+    n_layers x (prefills + steps), each in its own shard body; the
+    decode step's wall and device time.  Returns the launch counts."""
+    import numpy as np
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     sharded_launch_counts)
+    from repro_torch.models import decode_step
+    from repro_torch.models.model import param_axes_rule
+    from repro_torch.parallel.api import place_tree, set_mesh
+    t0 = time.perf_counter()
+    dparams = place_tree(params, param_axes_rule, mesh)
+    rng = np.random.default_rng(SHARDED_MOE["seed"])
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SHARDED["batch"], SHARDED["prompt"])
+    ).astype(np.int32)).cuda()
+    plain, stream, _, cache, pos = sharded_streams(
+        torch, cfg, params, None, prompt)
+    reset_launch_counts()
+    got, greedy, _, dcache, _ = sharded_streams(
+        torch, cfg, dparams, mesh, prompt, stream)
+    torch.cuda.synchronize()
+    launches, bodies = launch_counts(), sharded_launch_counts()
+    n_steps = SHARDED["n_steps"]
+    want = {"flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * n_steps,
+            "moe_gmm": 3 * cfg.n_layers * (1 + n_steps)}
+    for k, n in want.items():
+        check(launches[k] == n and bodies[k] == n,
+              f"sharded {cfg.name}: {k} launched {launches[k]} times in "
+              f"{bodies[k]} shard bodies, want {n}")
+    check(bodies["moe_gmm"] > 0, "sharded MoE: no moe_gmm shard body ran")
+    equal = all(torch.equal(a, b) for a, b in zip(got, plain))
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    same = int((greedy == stream).all(dim=1).sum())
+    print(f"sharded {cfg.name} (full width, {cfg.n_layers} of 94 layers, "
+          f"phases 7-10's weights placed by param_axes_rule on phase 24's "
+          f"(1, 1) NCCL mesh; B={SHARDED['batch']} x {SHARDED['prompt']}"
+          f"-token prompts, {n_steps} decode steps teacher-forced along "
+          f"the unsharded stream): flash {launches['flash_attention']}, "
+          f"decode {launches['decode_attention']} and moe_gmm "
+          f"{launches['moe_gmm']} launches, each in its own shard body; "
+          f"logits of the prefill and every step "
+          f"{'EQUAL' if equal else 'NOT equal'} to the unsharded path's "
+          f"(largest abs difference {max_abs:.4g}); greedy streams "
+          f"{same}/{SHARDED['batch']} identical")
+    check_later(equal, f"sharded {cfg.name}: the logits differ from the "
+                f"unsharded path's (largest abs difference {max_abs:.4g}); "
+                "on a one-rank mesh every block is the whole tensor and the "
+                "same kernels run")
+    tok = stream[:, -1:]
+
+    def sharded_step():
+        with set_mesh(mesh):
+            return decode_step(cfg, dparams, dcache, tok, pos)[0] \
+                .full_tensor().argmax(-1).cpu()
+
+    readings = {
+        "unsharded": profile(torch, f"unsharded {cfg.name} decode step (B="
+                             f"{SHARDED['batch']}, position {pos})",
+                             lambda: decode_step(cfg, params, cache, tok,
+                                                 pos)[0].argmax(-1).cpu()),
+        "sharded": profile(torch, f"sharded {cfg.name} decode step on the "
+                           f"(1, 1) mesh (B={SHARDED['batch']}, position "
+                           f"{pos})", sharded_step)}
+    w0, w1 = readings["unsharded"]["wall_ms"], \
+        readings["sharded"]["wall_ms"]
+    print(f"{cfg.name} decode step wall: sharded {w1:.2f} ms against "
+          f"unsharded {w0:.2f} ms ({w1 / w0:.2f}x); card: {card}")
+    del dparams, cache, dcache
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t0
+    print(f"phase 25 took {took:.1f} s (limit {SHARDED_MOE['max_s']} s)")
+    check(took < SHARDED_MOE["max_s"], f"phase 25 took {took:.1f} s, over "
+          f"{SHARDED_MOE['max_s']} s")
+    return {k: launches[k] for k in want}
+
+
+def phase_twins(torch, card: str):
+    """Phase 26: the twins of the reference's serve demo, resilience demo
+    and quickstart, each ``main()`` at the reference's defaults on the
+    card (the kernel path), with the launches of the kernels its path
+    runs; the device-spec lint's exit code.  Returns the launches."""
+    import contextlib
+    import io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, str(ROOT / "scripts" / "torch_check_device_specs.py")],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    BACKGROUND.append(lint)
+    launches = {}
+    for name in TWINS["examples"]:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        reset_launch_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        text = buf.getvalue()
+        print(f"examples/{name}.py (defaults, cuda), "
+              f"{time.perf_counter() - t1:.1f} s:")
+        print("  " + text.rstrip().replace("\n", "\n  "))
+        check(rc == 0, f"examples/{name}.py returned {rc}")
+        ran = {k: v for k, v in counts.items() if v}
+        print(f"  launches: {ran}")
+        for k in TWINS["kernels"][name]:
+            check(counts[k] > 0, f"examples/{name}.py: {k} never launched")
+        launches[name] = ran
+        if name == "torch_serve_resilience":
+            check("near-tie rule (first difference below margin 0.05): "
+                  "held" in text, "serve resilience act 3: the recomputed "
+                  "streams break the near-tie rule")
+            check("pool fully reclaimed: True" in text,
+                  "serve resilience act 3: the pool was not reclaimed")
+    out, err = lint.communicate(timeout=120)
+    print(f"scripts/torch_check_device_specs.py: rc {lint.returncode}; "
+          f"{out.strip()}")
+    check(lint.returncode == 0, f"the device-spec lint failed: "
+          f"{out[-1500:]} {err[-1500:]}")
+    took = time.perf_counter() - t0
+    print(f"phase 26 took {took:.1f} s (limit {TWINS['max_s']} s); "
+          f"card: {card}")
+    check(took < TWINS["max_s"], f"phase 26 took {took:.1f} s, over "
+          f"{TWINS['max_s']} s")
+    return launches
 
 
 def draw_params(torch, cfg, seed: int, what: str):
@@ -3524,6 +3868,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     laps = [t_start]
+    mesh_tmp = None
 
     def lap(label: str) -> None:
         laps.append(time.perf_counter())
@@ -3562,7 +3907,8 @@ def main() -> int:
         paged["launches_by_phase"]["23 " + cfg.name] = phase_fleet(
             torch, cfg, params, paged)
         lap("phase 23 (the fleet planner on qwen2-7b)")
-        sharded = phase_sharded(torch, cfg, params, card)
+        mesh, mesh_tmp = open_mesh(torch)
+        sharded = phase_sharded(torch, cfg, params, card, mesh)
         for key, rec in (("flash_attention", flash),
                          ("decode_attention", decode)):
             rec["launches_by_phase"]["24 " + cfg.name + " sharded"] = \
@@ -3570,13 +3916,17 @@ def main() -> int:
             rec["sharded_launches"] = sharded["bodies"][key]
         del params
         torch.cuda.empty_cache()
-        lap("phase 24 (the parallel layer: sharded qwen2-7b, dry-run)")
+        lap("phase 24 (the parallel layer: sharded qwen2-7b, kernels on "
+            "mesh blocks, dry-run, memdebug)")
 
         full = get_config(MOE["arch"])
         moe_cfg = dataclasses.replace(full, n_layers=MOE["n_layers"])
         moe = moe_gmm_record(torch, moe_cfg)
         moe["launches_by_phase"] = {}
         moe["sharded_check"] = sharded["checks"]["moe_gmm"]
+        moe["mesh_blocks"] = sharded["blocks"]["moe_gmm"]
+        flash["mesh_blocks"] = sharded["blocks"]["flash_attention"]
+        decode["mesh_blocks"] = sharded["blocks"]["decode_attention"]
         records["moe"] = moe
         torch.cuda.reset_peak_memory_stats()
         params = draw_params(
@@ -3596,12 +3946,23 @@ def main() -> int:
         print(f"MoE phases: peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; routing "
               f"flips (paged tick, sync step): {routing}, {routing_sync}")
+        lap("phases 7-10 (qwen3-moe)")
+        launches = phase_sharded_moe(torch, moe_cfg, params, mesh, card)
+        moe["launches_by_phase"]["25 " + moe_cfg.name + " sharded"] = \
+            launches["moe_gmm"]
+        flash["launches_by_phase"]["25 " + moe_cfg.name + " sharded"] = \
+            launches["flash_attention"]
+        decode["launches_by_phase"]["25 " + moe_cfg.name + " sharded"] = \
+            launches["decode_attention"]
         del params
         torch.cuda.empty_cache()
-        lap("phases 7-10 (qwen3-moe)")
+        close_mesh(mesh_tmp)
+        mesh_tmp = None
+        lap("phase 25 (sharded qwen3-moe)")
 
         ssd = ssd_record(torch)
         ssd["sharded_check"] = sharded["checks"]["mamba2_ssd"]
+        ssd["mesh_blocks"] = sharded["blocks"]["mamba2_ssd"]
         ssm_cfg = get_config(SSM["arch"])
         params = draw_params(
             torch, ssm_cfg, SSM["seed"],
@@ -3659,6 +4020,14 @@ def main() -> int:
         lap("phase 21 (the timing model and the Listing-1 probe)")
         phase_perf_pipeline(torch, sync_readings)
         lap("phase 22 (the performance pipeline)")
+        twins = phase_twins(torch, card)
+        for key, rec in (("paged_decode_attention", paged),
+                         ("flash_attention", flash),
+                         ("decode_attention", decode)):
+            n = sum(ran.get(key, 0) for ran in twins.values())
+            if n:
+                rec["launches_by_phase"]["26 examples"] = n
+        lap("phase 26 (the example and script twins)")
         for rec in records.values():
             rec["launches"] = sum(rec["launches_by_phase"].values())
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [
@@ -3667,6 +4036,10 @@ def main() -> int:
     except Failure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_background()
+        if mesh_tmp is not None:
+            close_mesh(mesh_tmp)
     print(f"elapsed {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [paged, flash, decode, moe, ssd, gemm,

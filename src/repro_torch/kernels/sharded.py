@@ -14,9 +14,9 @@ body gets plain local tensors.  On the active mesh
 * the op's named dims get their mesh axes from
   :func:`~repro_torch.parallel.api.shard_assignment` on the catalog's
   contract (grouped divisibility: H and KV shard together, nh and G);
-* each operand's and output's DTensor placements come from
-  ``assignment.spec(...)`` (:func:`~repro_torch.parallel.api.to_placements`),
-  one placement list per tensor;
+* each operand's and output's spec comes from the assignment
+  (:func:`operand_specs`), and its DTensor placements from the spec
+  (:func:`~repro_torch.parallel.api.to_placements`);
 * ``torch.distributed.tensor.experimental.local_map`` redistributes the
   operands to those placements and calls the unsharded wrapper on each
   rank's block: on a CUDA tensor the CUDA kernel, on a CPU tensor its
@@ -33,6 +33,11 @@ without an active mesh raises too.
 ``SHARDED_LAUNCHES`` counts the shard bodies that ran (one a rank a
 call), so a run can show that its kernels went through this path; the
 kernels' own ``LAUNCHES`` count the launches inside them as before.
+
+:func:`on_local_blocks` runs a kernel on each block a larger mesh's
+ranks would get, one after another on one device: on a one-rank mesh
+every block is the whole tensor, so only this shows a kernel at a
+shard's shapes without a process group of many devices.
 """
 
 from __future__ import annotations
@@ -46,8 +51,8 @@ from repro_torch.parallel.api import (PartitionSpec, current_mesh,
                                       to_placements)
 
 __all__ = ["flash_attention", "decode_attention", "mamba2_ssd", "moe_gmm",
-           "SHARDED_LAUNCHES", "assignment", "any_dtensor",
-           "refuse_dtensors"]
+           "SHARDED_LAUNCHES", "operand_specs", "local_block",
+           "on_local_blocks", "any_dtensor", "refuse_dtensors"]
 
 SHARDED_LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                                     "decode_attention": 0, "mamba2_ssd": 0,
@@ -71,21 +76,6 @@ def refuse_dtensors(kernel: str, *operands) -> None:
     no logical-axis contract."""
     if any_dtensor(*operands):
         raise _no_contract(kernel)
-
-
-def assignment(kernel: str, shapes: Mapping[str, int]):
-    """(mesh, ShardAssignment) of a sharded call of ``kernel``; raises a
-    ``ValueError`` without an active mesh or without a contract."""
-    from repro_torch.kernels.plan import get_kernel
-    mesh = current_mesh()
-    if mesh is None:
-        raise ValueError(
-            f"{kernel}: a DTensor operand requires an active mesh "
-            "(repro_torch.parallel.set_mesh)")
-    logical = get_kernel(kernel).logical
-    if logical is None:
-        raise _no_contract(kernel)
-    return mesh, shard_assignment(shapes, logical, mesh)
 
 
 def _dtensor(t: torch.Tensor, mesh):
@@ -116,56 +106,136 @@ def _run(kernel: str, mesh, body: Callable,
     return fn(*(_dtensor(t, mesh) for t in tensors))
 
 
+def _op_shapes(kernel: str, operands) -> Dict[str, int]:
+    """The named dims of ``kernel``'s contract on ``operands``."""
+    if kernel == "flash_attention":
+        q, k = operands[:2]
+        B, S, H, hd = q.shape
+        return {"B": B, "S": S, "T": k.shape[1], "H": H, "KV": k.shape[2],
+                "hd": hd}
+    if kernel == "decode_attention":
+        q, k = operands[:2]
+        B, H, hd = q.shape
+        return {"B": B, "T": k.shape[1], "H": H, "KV": k.shape[2], "hd": hd}
+    if kernel == "mamba2_ssd":
+        x, Bm = operands[0], operands[3]
+        B, S, nh, hd = x.shape
+        return {"B": B, "S": S, "nh": nh, "hd": hd, "ds": Bm.shape[3],
+                "G": Bm.shape[2]}
+    x, w = operands[:2]
+    E, C, K = x.shape
+    return {"E": E, "C": C, "K": K, "N": w.shape[2]}
+
+
+def operand_specs(kernel: str, *operands, mesh=None):
+    """(the operands' specs, the output's spec or specs) of a sharded call
+    of ``kernel`` on ``operands`` (the wrapper's positional operands; a
+    per-request ``kv_len`` tensor counts as one) on ``mesh``, default
+    the active one: the placements under which each rank's shard body
+    gets its local blocks.  ``mesh`` may be any object whose ``shape``
+    maps axis names to sizes (``parallel.api.mesh_sizes``)."""
+    from repro_torch.kernels.plan import get_kernel
+    logical = get_kernel(kernel).logical
+    if logical is None:
+        raise _no_contract(kernel)
+    asn = shard_assignment(_op_shapes(kernel, operands), logical,
+                           mesh if mesh is not None else current_mesh())
+    if kernel == "flash_attention":
+        qs, kvs = asn.spec("B", None, "H", None), \
+            asn.spec("B", None, "KV", None)
+        return (qs, kvs, kvs), qs
+    if kernel == "decode_attention":
+        qs, kvs = asn.spec("B", "H", None), asn.spec("B", None, "KV", None)
+        return (qs, kvs, kvs, asn.spec("B"))[:len(operands)], qs
+    if kernel == "mamba2_ssd":
+        bc = asn.spec("B", None, "G", None)
+        return ((asn.spec("B", None, "nh", None), asn.spec("B", None, "nh"),
+                 asn.spec("nh"), bc, bc),
+                (asn.spec("B", None, "nh", None),
+                 asn.spec("B", "nh", None, None)))
+    es = asn.spec("E", None, None)
+    return (es, es), es
+
+
+def local_block(t: torch.Tensor, spec: Sequence, coord: Sequence[int],
+                sizes: Mapping[str, int]) -> tuple:
+    """The index of the block of ``t`` (laid out by ``spec``) that the
+    rank at ``coord`` (one index a mesh dim) of a mesh of ``sizes`` (axis
+    name -> size, in mesh-dim order) holds: each dim split evenly over
+    its mesh axes in mesh-dim order, as DTensor's ``Shard`` splits it."""
+    names, index = list(sizes), []
+    for d, part in enumerate(spec):
+        axes = () if part is None else (part,) if isinstance(part, str) \
+            else part
+        i, parts = 0, 1
+        for m, name in enumerate(names):
+            if name in axes:
+                i, parts = i * sizes[name] + coord[m], parts * sizes[name]
+        n = t.shape[d] // parts
+        index.append(slice(i * n, (i + 1) * n))
+    return tuple(index)
+
+
+def on_local_blocks(kernel: str, fn: Callable, operands: Sequence,
+                    sizes: Mapping[str, int], like):
+    """``fn`` (``kernel``'s wrapper) run in this process on each local
+    block of ``operands`` that the ranks of a mesh of ``sizes`` get from
+    the sharded path (:func:`operand_specs`), one rank after another and
+    with no process group: a kernel at a shard's shapes on one device.
+    Returns (the outputs put back together, shaped as ``like``, a tensor
+    or a tuple of them; the set of local operand shapes)."""
+    import itertools
+    from types import SimpleNamespace
+    in_specs, out_specs = operand_specs(kernel, *operands,
+                                        mesh=SimpleNamespace(shape=sizes))
+    single = not isinstance(like, tuple)
+    like, out_specs = ((like,), (out_specs,)) if single else (like,
+                                                              out_specs)
+    outs = [torch.full_like(t, float("nan")) for t in like]
+    local = set()
+    for coord in itertools.product(*(range(n) for n in sizes.values())):
+        blocks = [t[local_block(t, sp, coord, sizes)].contiguous()
+                  for t, sp in zip(operands, in_specs)]
+        local.add(tuple(tuple(b.shape) for b in blocks))
+        got = fn(*blocks)
+        for o, g, sp in zip(outs, (got,) if single else got, out_specs):
+            o[local_block(o, sp, coord, sizes)] = g
+    return (outs[0] if single else tuple(outs)), local
+
+
+def _sharded(kernel: str, body: Callable, *operands):
+    """``body`` on each rank's blocks of ``operands`` under ``local_map``,
+    placed by :func:`operand_specs`."""
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(
+            f"{kernel}: a DTensor operand requires an active mesh "
+            "(repro_torch.parallel.set_mesh)")
+    in_specs, out_specs = operand_specs(kernel, *operands, mesh=mesh)
+    return _run(kernel, mesh, body, out_specs, in_specs, *operands)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     kv_len: Optional[int] = None):
     from repro_torch.kernels.flash_attention import flash_attention as one
-    B, S, H, hd = q.shape
-    mesh, asn = assignment(
-        "flash_attention",
-        {"B": B, "S": S, "T": k.shape[1], "H": H, "KV": k.shape[2],
-         "hd": hd})
-    qs, kvs = asn.spec("B", None, "H", None), asn.spec("B", None, "KV", None)
-    return _run("flash_attention", mesh,
-                lambda ql, kl, vl: one(ql, kl, vl, causal=causal,
-                                       kv_len=kv_len),
-                qs, (qs, kvs, kvs), q, k, v)
+    return _sharded("flash_attention",
+                    lambda ql, kl, vl: one(ql, kl, vl, causal=causal,
+                                           kv_len=kv_len), q, k, v)
 
 
 def decode_attention(q, k, v, kv_len):
     from repro_torch.kernels.decode_attention import decode_attention as one
-    B, H, hd = q.shape
-    mesh, asn = assignment(
-        "decode_attention",
-        {"B": B, "T": k.shape[1], "H": H, "KV": k.shape[2], "hd": hd})
-    qs, kvs = asn.spec("B", "H", None), asn.spec("B", None, "KV", None)
     if isinstance(kv_len, torch.Tensor):
-        return _run("decode_attention", mesh, one, qs,
-                    (qs, kvs, kvs, asn.spec("B")), q, k, v, kv_len)
-    return _run("decode_attention", mesh,
-                lambda ql, kl, vl: one(ql, kl, vl, kv_len), qs,
-                (qs, kvs, kvs), q, k, v)
+        return _sharded("decode_attention", one, q, k, v, kv_len)
+    return _sharded("decode_attention",
+                    lambda ql, kl, vl: one(ql, kl, vl, kv_len), q, k, v)
 
 
 def mamba2_ssd(x, dt, A, Bm, Cm):
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd as one
-    B, S, nh, hd = x.shape
-    mesh, asn = assignment(
-        "mamba2_ssd",
-        {"B": B, "S": S, "nh": nh, "hd": hd, "ds": Bm.shape[3],
-         "G": Bm.shape[2]})
-    bc = asn.spec("B", None, "G", None)
-    return _run("mamba2_ssd", mesh,
-                one,
-                (asn.spec("B", None, "nh", None),
-                 asn.spec("B", "nh", None, None)),
-                (asn.spec("B", None, "nh", None), asn.spec("B", None, "nh"),
-                 asn.spec("nh"), bc, bc), x, dt, A, Bm, Cm)
+    return _sharded("mamba2_ssd", one, x, dt, A, Bm, Cm)
 
 
 def moe_gmm(x, w):
     from repro_torch.kernels.moe_gmm import moe_gmm as one
-    E, C, K = x.shape
-    mesh, asn = assignment("moe_gmm",
-                           {"E": E, "C": C, "K": K, "N": w.shape[2]})
-    es = asn.spec("E", None, None)
-    return _run("moe_gmm", mesh, one, es, (es, es), x, w)
+    return _sharded("moe_gmm", one, x, w)

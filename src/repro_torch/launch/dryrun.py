@@ -47,20 +47,26 @@ state and the results, not the activations in flight.
 turned into a plain tensor.  These sites are handled explicitly:
 
 * plain tensors the model makes beside DTensors (positions, masks, RoPE
-  frequencies, index vectors, the MoE slot maps' zero buffers) are
-  replicated by ``implicit_replication``, which ``set_mesh`` enters;
+  frequencies, index vectors) are replicated by ``implicit_replication``,
+  which ``set_mesh`` enters;
 * ``aten.mm.dtype`` (the bf16 product with an f32 output) gets
   ``aten.mm``'s rule (``parallel.api.register_rules``);
 * the cache writes of the decode steps and the prefill's padded caches
   (``parallel.api.write_rows``, ``assign``) run on each rank's local
   block, after laying the new rows out like the cache;
 * the attention core for S > 1 (``models.attention._attention_on_shards``),
-  the embedding lookup (``models.layers._lookup_on_shards``: the
-  gradient's ``index_put`` has a faulty rule on torch 2.11) and the
-  kernels (:mod:`repro_torch.kernels.sharded`) run under ``local_map`` on
+  the MoE slot maps (``models.moe._slot_maps``: DTensor's in-place
+  scatter into a plain tensor fails), the embedding lookup
+  (``models.layers._lookup_on_shards``: the gradient's ``index_put``
+  has a faulty rule on torch 2.11) and the kernels
+  (:mod:`repro_torch.kernels.sharded`) run under ``local_map`` on
   explicit placements; the cells here run the plain path
   (``use_kernels=False``), as the reference's lower its
   ``use_pallas=False`` path;
+* the MoE expert products fold the batch groups into each expert's rows
+  (and back) through a contiguous copy, forward and backward
+  (``models.moe._Relayout``): a redistribute can leave a DTensor's
+  strides unlike its local block's, and the view then fails;
 * layouts the model sets at a ``shard()`` site: a projection's output is
   laid out on whole heads before it is viewed as heads (or replicated
   when the head count does not divide the model axis), and so is the
@@ -187,11 +193,14 @@ def fake_world(n: int):
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
-             verbose: bool = True, *, cfg=None, mesh=None) -> Dict:
+             verbose: bool = True, *, cfg=None, mesh=None,
+             recorder: Optional[_LocalRecorder] = None) -> Dict:
     """Run one cell on meta DTensors; returns the stats record.  ``mesh``
     defaults to the production mesh (then the default process group must
     be a ``fake`` one of its size: see :func:`fake_world`); ``cfg``
-    defaults to the arch's published config.  The plain path runs
+    defaults to the arch's published config; ``recorder`` to a fresh
+    :class:`_LocalRecorder` (a subclass may file the ops further, as
+    ``scripts/torch_memdebug.py``'s does).  The plain path runs
     (``use_kernels=False``)."""
     from torch.distributed.tensor.debug import CommDebugMode
     shape = SHAPES[shape_name]
@@ -203,7 +212,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
            "mesh": "x".join(str(s) for s in mesh.shape),
            "n_devices": n_dev, "kind": shape.kind}
     t0 = time.time()
-    rec_mode = _LocalRecorder()
+    rec_mode = recorder if recorder is not None else _LocalRecorder()
     with set_mesh(mesh):
         fn, specs = cell_fn_and_specs(arch, shape, mesh, cfg=cfg)
         t1 = time.time()

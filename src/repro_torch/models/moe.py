@@ -23,7 +23,11 @@ Two paths for the three expert products, as in the reference:
 Under a mesh (:func:`repro_torch.parallel.set_mesh`) the reference's
 layout annotations are kept at its sites (:func:`shard`: tokens on
 ``batch``, slot buffers on ``batch`` x ``expert``) and ``moe_gmm`` runs
-through its sharded wrapper, one expert block a shard.
+through its sharded wrapper, one expert block a shard.  The slot maps
+run one block of groups a rank under ``local_map``
+(:func:`_slot_maps`), and the expert products fold the groups into each
+expert's rows through a contiguous copy (:class:`_Relayout`); without a
+mesh neither touches DTensor.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import moe_gmm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype, dense, mm
-from repro_torch.parallel.api import shard
+from repro_torch.parallel.api import (current_mesh, is_dtensor,
+                                      named_sharding, shard)
 
 __all__ = ["init_moe", "moe_apply", "router_topk", "capacity"]
 
@@ -97,7 +102,29 @@ def router_topk(cfg: ModelConfig, w_router: torch.Tensor, x: torch.Tensor
 
 
 def _slot_maps(cfg: ModelConfig, idx: torch.Tensor, C: int):
-    """Integer slot maps from expert assignments.
+    """Integer slot maps from expert assignments (see :func:`_group_maps`).
+
+    A DTensor ``idx`` (under a mesh) is mapped one block of groups a rank
+    under ``local_map``: the maps of a group read only its own row, so
+    no rank needs another's, and the scatters write the rank's own
+    tensors (DTensor's in-place scatter into a plain tensor fails).
+    ``src`` and ``used`` are then laid out on ``batch`` x ``expert``, as
+    in the reference."""
+    if not is_dtensor(idx):
+        return _group_maps(cfg, idx, C)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = current_mesh()
+    pl = named_sharding(idx.shape, ("batch", None), mesh)
+    pos, keep, src, used = local_map(
+        lambda i: _group_maps(cfg, i, C), out_placements=(pl,) * 4,
+        in_placements=(pl,), device_mesh=mesh,
+        redistribute_inputs=True)(idx)
+    return pos, keep, shard(src, "batch", "expert"), \
+        shard(used, "batch", "expert")
+
+
+def _group_maps(cfg: ModelConfig, idx: torch.Tensor, C: int):
+    """Integer slot maps from expert assignments, on plain tensors.
 
     idx: (G, A) expert ids (A = S*K assignments in token order).
     Returns:
@@ -134,15 +161,58 @@ def _expert_mm(x4: torch.Tensor, w3: torch.Tensor, *, use_kernels: bool,
     more than ``mm``'s f32 output: the reference's Pallas path takes it
     too); otherwise ``mm`` runs (folding first, so that the weights are
     not broadcast over B)."""
-    B, E, C, K = x4.shape
-    N = w3.shape[2]
-    xe = x4.transpose(0, 1).reshape(E, B * C, K)
+    B = x4.shape[0]
+    xe = _fold(x4)
     if use_kernels:
         y = moe_gmm(xe, w3)
         y = y.to(torch.float32 if out_dtype is None else out_dtype)
     else:
         y = mm(xe, w3, out_dtype=out_dtype)
-    return y.reshape(E, B, C, N).transpose(0, 1)
+    return _unfold(y, B)
+
+
+def _fold(x4: torch.Tensor) -> torch.Tensor:
+    """(B, E, C, K) -> (E, B * C, K)."""
+    if is_dtensor(x4):
+        return _Relayout.apply(x4, True, x4.shape[0])
+    B, E, C, K = x4.shape
+    return x4.transpose(0, 1).reshape(E, B * C, K)
+
+
+def _unfold(y: torch.Tensor, B: int) -> torch.Tensor:
+    """(E, B * C, N) -> (B, E, C, N)."""
+    if is_dtensor(y):
+        return _Relayout.apply(y, False, B)
+    E, BC, N = y.shape
+    return y.reshape(E, B, BC // B, N).transpose(0, 1)
+
+
+class _Relayout(torch.autograd.Function):
+    """:func:`_fold` (``fold``) or :func:`_unfold` of a DTensor, each the
+    other's backward, through a contiguous copy: a redistribute can leave
+    a DTensor's strides unlike its local block's, and a view of the block
+    that the strides allow then fails."""
+
+    @staticmethod
+    def _apply(t, fold: bool, B: int):
+        if fold:
+            _, E, C, K = t.shape
+            t = t.transpose(0, 1)
+            shape = (E, B * C, K)
+        else:
+            E, BC, N = t.shape
+            shape = (E, B, BC // B, N)
+        t = t.clone(memory_format=torch.contiguous_format).reshape(shape)
+        return t if fold else t.transpose(0, 1)
+
+    @staticmethod
+    def forward(ctx, t, fold: bool, B: int):
+        ctx.fold, ctx.B = fold, B
+        return _Relayout._apply(t, fold, B)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Relayout._apply(g, not ctx.fold, ctx.B), None, None
 
 
 def moe_apply(cfg: ModelConfig, w, x: torch.Tensor

@@ -5,7 +5,9 @@ Scheme (per leaf), as in the reference:
 
   scale  = max|g| / 127          (one f32 per leaf)
   q      = round(g / scale) : int8   (round half to even in both packages)
-  wire   = all_reduce(q)  -- the int8 values are what cross the link
+  wire   = all_reduce(int32(q))  -- the int8 values cross the link
+           widened to int32, 4 bytes an element (no fewer than f32), as
+           in the reference (a psum of int32)
   g_hat  = q * scale ; residual = g - dequant(q)  (error feedback, added
            to the *next* step's gradient so quantisation error is not lost)
 
@@ -83,10 +85,11 @@ class ErrorFeedback:
 
 
 def int8_psum(x: torch.Tensor, group: Optional[Any] = None) -> torch.Tensor:
-    """Mean all-reduce of ``x`` over ``group`` (default the world) with an
-    int8 payload: ranks agree on one scale (all-reduce MAX of max|x|),
-    sum their int8 values as int32 and divide by the group's size.
-    Returns the mean in ``x``'s dtype."""
+    """Mean all-reduce of ``x`` over ``group`` (default the world) of
+    int8-quantised values: ranks agree on one scale (all-reduce MAX of
+    max|x|), sum their int8 values as int32 (the all-reduce moves int32,
+    4 bytes an element) and divide by the group's size.  Returns the mean
+    in ``x``'s dtype."""
     import torch.distributed as dist
     n = dist.get_world_size(group)
     xf = x.float()

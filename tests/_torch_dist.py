@@ -10,6 +10,8 @@ inputs the test left in ``tmp / "in.pt"`` and writes what it computed to
 ``tmp / f"out{rank}.pt"``; the process group is destroyed before the
 rank exits, so none is ever left in a pytest worker.  The subprocess
 has its own timeout and its process group of ranks is killed with it.
+``start`` and ``finish`` split ``launch`` so that several groups run
+side by side.
 """
 
 import os
@@ -25,6 +27,12 @@ _ROOT = Path(__file__).resolve().parents[1]
 
 def launch(scenario: str, world: int, tmp, timeout: float = 240.0):
     """Run ``scenario`` on ``world`` ranks; returns the ranks' outputs."""
+    return finish(start(scenario, world, tmp), timeout)
+
+
+def start(scenario: str, world: int, tmp):
+    """Start ``scenario`` on ``world`` ranks without waiting (groups started
+    together run side by side); :func:`finish` collects it."""
     tmp = Path(tmp)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -35,6 +43,12 @@ def launch(scenario: str, world: int, tmp, timeout: float = 240.0):
         [sys.executable, __file__, scenario, str(world), str(tmp)],
         env=env, cwd=str(_ROOT), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, start_new_session=True)
+    return proc, scenario, world, tmp
+
+
+def finish(started, timeout: float = 240.0):
+    """The ranks' outputs of a group :func:`start` began."""
+    proc, scenario, world, tmp = started
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -205,8 +219,44 @@ def elastic(rank, world, tmp):
     return out
 
 
-SCENARIOS = {"sharded": sharded, "collectives": collectives,
-             "elastic": elastic}
+def sharded_moe(rank, world, tmp):
+    """Reduced f32 MoE models (``inp["archs"]``: name -> (config, the
+    port's params)) on a (2, 2) mesh, or the one-rank (1, 1) mesh when
+    ``world`` is 1: ``forward``, ``prefill`` and ``decode_step`` with the
+    kernels off and on, sharded and unsharded, with the shard bodies each
+    run took."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.models import model as M
+    from repro_torch.parallel.api import place_tree, set_mesh
+
+    inp = _inputs(tmp)
+    mesh = _mesh((2, 2) if world == 4 else (1, 1))
+    tok, max_len, pos = inp["tokens"], inp["max_len"], inp["pos"]
+    out = {}
+    for arch, (cfg, params) in inp["archs"].items():
+        dparams = place_tree(params, M.param_axes_rule, mesh)
+        for kernels_on in inp["kernels"]:
+            c = dataclasses.replace(cfg, use_kernels=kernels_on)
+            res = {}
+            for tag, p, ctx in (("plain", params, set_mesh(None)),
+                                ("sharded", dparams, set_mesh(mesh))):
+                kernels.reset_launch_counts()
+                with ctx:
+                    logits, _ = M.forward(c, p, {"tokens": tok})
+                    pl, cache = M.prefill(c, p, {"tokens": tok}, max_len)
+                    dl, _ = M.decode_step(c, p, cache, tok[:, :1], pos)
+                full = (lambda t: t.full_tensor()) if tag == "sharded" \
+                    else (lambda t: t)
+                res[tag] = {"forward": full(logits), "prefill": full(pl),
+                            "decode": full(dl),
+                            "bodies": kernels.sharded_launch_counts()}
+            out[(arch, kernels_on)] = res
+    return out
+
+
+SCENARIOS = {"sharded": sharded, "sharded_moe": sharded_moe,
+             "collectives": collectives, "elastic": elastic}
 
 
 if __name__ == "__main__":

@@ -1070,3 +1070,92 @@ def test_fleet_fitted_costs_predict_heldout_trace_on_the_card(cuda):
     assert 0.5 * measured <= predicted <= 2.0 * measured, \
         f"predicted {predicted * 1e3:.3f} ms/tok vs measured " \
         f"{measured * 1e3:.3f} ms/tok ({costs})"
+
+
+# -- the kernels on a mesh's local blocks --------------------------------
+#
+# The four kernels with a logical-axis contract, each launched on every
+# local block a (2, 2) ("data", "model") mesh gives its ranks
+# (``kernels.sharded.on_local_blocks``: batch on data, heads or experts
+# on model), on one card and without a process group; the blocks put back
+# together are held to the unsharded launch under the bf16 rule.  On the
+# card's one-rank mesh every placement is Replicate(), so only this shows
+# a kernel at a shard's local shapes (heads and batch halved, and for
+# decode another split of the cache: ``kernel_split_rows`` reads B * KV).
+
+MESH_2X2 = {"data": 2, "model": 2}
+
+
+def _held_on_blocks(kernel, fn, operands):
+    from repro_torch.kernels.sharded import on_local_blocks
+    whole = fn(*operands)
+    before = launch_counts()[kernel]
+    got, local = on_local_blocks(kernel, fn, operands, MESH_2X2, whole)
+    torch.cuda.synchronize()
+    assert launch_counts()[kernel] == before + 4      # one a rank
+    assert len(local) == 1                            # even blocks
+    pairs = zip(got, whole) if isinstance(got, tuple) else [(got, whole)]
+    for g, w in pairs:
+        assert torch.isfinite(g).all()
+        f32 = g.dtype == torch.float32
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   w.float().cpu().numpy(),
+                                   rtol=1e-4 if f32 else 2.0 ** -7,
+                                   atol=1e-3 if f32 else 1e-2)
+    return local.pop()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_on_mesh_blocks(cuda):
+    g = torch.Generator().manual_seed(30)
+    q = _randn(g, 4, 256, 8, 64).to(torch.bfloat16).cuda()
+    k, v = (_randn(g, 4, 256, 4, 64).to(torch.bfloat16).cuda()
+            for _ in range(2))
+    local = _held_on_blocks("flash_attention",
+                            lambda *t: flash_attention(*t, causal=True),
+                            (q, k, v))
+    assert local == ((2, 256, 4, 64), (2, 256, 2, 64), (2, 256, 2, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_request", [False, True])
+def test_decode_kernel_on_mesh_blocks(cuda, per_request):
+    g = torch.Generator().manual_seed(31)
+    B, H, KV, hd, T = 4, 8, 4, 128, 3072
+    q = _randn(g, B, H, hd).to(torch.bfloat16).cuda()
+    k, v = (_randn(g, B, T, KV, hd).to(torch.bfloat16).cuda()
+            for _ in range(2))
+    # the halved B * KV takes another split of the cache
+    assert kernel_split_rows(T, B * KV) != kernel_split_rows(T, B * KV // 4)
+    if per_request:
+        lens = torch.tensor([3072, 1, 2000, 129], dtype=torch.int32).cuda()
+        local = _held_on_blocks("decode_attention", decode_attention,
+                                (q, k, v, lens))
+    else:
+        local = _held_on_blocks("decode_attention",
+                                lambda *t: decode_attention(*t, 2900),
+                                (q, k, v))
+    assert local[:3] == ((2, 4, 128), (2, T, 2, 128), (2, T, 2, 128))
+
+
+@pytest.mark.cuda
+def test_moe_gmm_kernel_on_mesh_blocks(cuda):
+    g = torch.Generator().manual_seed(32)
+    x, w = _moe_operands(g, 8, 32, 256, 128, torch.bfloat16)
+    local = _held_on_blocks("moe_gmm", moe_gmm, (x, w))
+    assert local == ((4, 32, 256), (4, 256, 128))     # experts on model
+
+
+@pytest.mark.cuda
+def test_mamba2_ssd_kernel_on_mesh_blocks(cuda):
+    g = torch.Generator().manual_seed(33)
+    B, S, nh, hd, G, ds = 2, 256, 8, 64, 1, 128
+    x = (_randn(g, B, S, nh, hd) * 0.5).to(torch.bfloat16).cuda()
+    dt = (_randn(g, B, S, nh).abs() * 0.8 + 0.05).cuda()
+    A = (-_randn(g, nh).abs() - 0.1).cuda()
+    Bm, Cm = ((_randn(g, B, S, G, ds) * 0.5).to(torch.bfloat16).cuda()
+              for _ in range(2))
+    local = _held_on_blocks("mamba2_ssd", mamba2_ssd, (x, dt, A, Bm, Cm))
+    # heads on model, the one B/C group broadcast to every rank
+    assert local == ((1, S, 4, hd), (1, S, 4), (4,), (1, S, 1, ds),
+                     (1, S, 1, ds))

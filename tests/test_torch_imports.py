@@ -385,3 +385,46 @@ def test_parallel_and_launch_modules_import_clean_and_first():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     unset = {"XLA_FLAGS": None, "REPRO_CPU_F32_DOTS": None}
     assert got == {"env": unset, "env_after": unset}
+
+
+TWINS = ("examples/torch_serve_demo.py", "examples/torch_serve_resilience.py",
+         "examples/torch_quickstart.py",
+         "scripts/torch_check_device_specs.py", "scripts/torch_memdebug.py")
+
+_TWIN_PROBE = r"""
+import importlib.util, json, pathlib, sys
+sys.path.insert(0, sys.argv[1] + "/src")
+mains = {}
+for rel in sys.argv[2:]:
+    spec = importlib.util.spec_from_file_location(
+        pathlib.Path(rel).stem, sys.argv[1] + "/" + rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mains[rel] = callable(mod.main)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"leaked": leaked, "mains": mains}))
+"""
+
+
+def test_example_and_script_twins_import_clean():
+    """The twins of the reference's serve demo, resilience and quickstart
+    examples, its device-spec lint and its memdebug script load neither
+    jax nor the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _TWIN_PROBE, str(ROOT),
+                          *TWINS], capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "mains": {d: True for d in TWINS}}
+
+
+@pytest.mark.parametrize("example", TWINS[:3])
+def test_example_twins_default_to_cuda(monkeypatch, example):
+    spec = importlib.util.spec_from_file_location(
+        Path(example).stem, ROOT / example)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])

@@ -3,9 +3,11 @@ for every device of the port's registry, the shape cells, and the
 dry-run of reduced qwen2-7b's ``decode_32k`` cell on an 8-rank (4, 2)
 fake mesh.
 
-The dry-run runs in a subprocess (its ``fake`` process group must not
-outlive it in a pytest worker) and is held to two counts taken without
-a mesh: its per-device parameter bytes equal the sum of each leaf's
+The same cell of reduced qwen3-moe runs beside it (its MoE layers'
+slot maps, dispatch and combine on the mesh, the experts on the model
+axis).  The dry-run runs in a subprocess (its ``fake`` process group
+must not outlive it in a pytest worker) and each record is held to two
+counts taken without a mesh: its per-device parameter bytes equal the sum of each leaf's
 local block by the axis rules, and its dot FLOPs times the 8 ranks
 equal ``perf.torch_graph.capture``'s of the unsharded step (no product
 is lost or repeated on another rank).  The reference's ``repro.launch``
@@ -109,28 +111,31 @@ _DRYRUN = textwrap.dedent("""
                                               meta_params, meta_tokens)
     from repro_torch.tree import flatten_with_path
 
-    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
-                              use_kernels=False)
+    out = {}
     with dryrun.fake_world(8):
         mesh = make_smoke_mesh((4, 2), device="cpu")
-        rec = dryrun.run_cell("qwen2-7b", "decode_32k", cfg=cfg, mesh=mesh,
-                              verbose=False)
         sizes = {"data": 4, "model": 2}
-        want = 0
-        for path, leaf in flatten_with_path(meta_params(cfg)):
-            spec = logical_to_spec(leaf.shape, param_axes_rule(path, leaf),
-                                   mesh)
-            parts = 1
-            for p in spec:
-                for ax in (() if p is None else (p,) if isinstance(p, str)
-                           else p):
-                    parts *= sizes[ax]
-            want += leaf.numel() * leaf.element_size() // parts
-    unsharded = capture(decode_step, cfg, meta_params(cfg),
-                        meta_cache(cfg, 128, 32768), meta_tokens((128, 1)),
-                        32767)
-    json.dump({"rec": rec, "param_bytes": want,
-               "unsharded_flops": unsharded.flops}, open(sys.argv[1], "w"))
+        for arch in ("qwen2-7b", "qwen3-moe-235b-a22b"):
+            cfg = dataclasses.replace(get_config(arch).reduced(),
+                                      use_kernels=False)
+            rec = dryrun.run_cell(arch, "decode_32k", cfg=cfg, mesh=mesh,
+                                  verbose=False)
+            want = 0
+            for path, leaf in flatten_with_path(meta_params(cfg)):
+                spec = logical_to_spec(leaf.shape,
+                                       param_axes_rule(path, leaf), mesh)
+                parts = 1
+                for p in spec:
+                    for ax in (() if p is None else (p,)
+                               if isinstance(p, str) else p):
+                        parts *= sizes[ax]
+                want += leaf.numel() * leaf.element_size() // parts
+            unsharded = capture(decode_step, cfg, meta_params(cfg),
+                                meta_cache(cfg, 128, 32768),
+                                meta_tokens((128, 1)), 32767)
+            out[arch] = {"rec": rec, "param_bytes": want,
+                         "unsharded_flops": unsharded.flops}
+    json.dump(out, open(sys.argv[1], "w"))
 """)
 
 
@@ -145,31 +150,59 @@ def dryrun_record(tmp_path_factory):
     return json.loads(out.read_text())
 
 
-def test_dryrun_parameter_bytes_are_the_local_blocks(dryrun_record):
-    rec = dryrun_record["rec"]
+def _parameter_bytes_are_the_local_blocks(cell):
+    rec = cell["rec"]
     assert rec["n_devices"] == 8 and rec["mesh"] == "4x2"
-    assert rec["memory"]["param_bytes_per_device"] == \
-        dryrun_record["param_bytes"]
+    assert rec["memory"]["param_bytes_per_device"] == cell["param_bytes"]
     assert rec["memory"]["alias_size_in_bytes"] > 0      # the cache, in place
     assert "temp_size_in_bytes" in rec["memory"]["not_measured"]
 
 
-def test_dryrun_dot_flops_over_ranks_equal_the_unsharded(dryrun_record):
-    rec = dryrun_record["rec"]
+def _dot_flops_over_ranks_equal_the_unsharded(cell):
+    rec = cell["rec"]
     assert rec["hlo"]["flops_per_device"] * rec["n_devices"] == \
-        dryrun_record["unsharded_flops"]
+        cell["unsharded_flops"]
 
 
-def test_dryrun_record_feeds_the_roofline(dryrun_record, tmp_path):
-    rec = dryrun_record["rec"]
+def _record_feeds_the_roofline(rec, tmp_path):
     hlo = rec["hlo"]
     assert hlo["bytes_per_device"] > 0
     assert hlo["collective_wire_bytes"] > 0    # model shards the weights
     assert sum(v["count"] for v in hlo["collectives"].values()) == \
         sum(rec["comm_counts"].values())
-    (tmp_path / "qwen2-7b_decode_32k_single.json").write_text(
+    (tmp_path / f"{rec['arch']}_decode_32k_single.json").write_text(
         json.dumps(rec))
     rows = roofline.load_cells(str(tmp_path))
     assert len(rows) == 1 and rows[0]["dominant"] in ("compute", "memory",
                                                       "collective")
     assert rows[0]["memory_t"] > 0 and rows[0]["collective_t"] > 0
+
+
+def test_dryrun_parameter_bytes_are_the_local_blocks(dryrun_record):
+    _parameter_bytes_are_the_local_blocks(dryrun_record["qwen2-7b"])
+
+
+def test_dryrun_dot_flops_over_ranks_equal_the_unsharded(dryrun_record):
+    _dot_flops_over_ranks_equal_the_unsharded(dryrun_record["qwen2-7b"])
+
+
+def test_dryrun_record_feeds_the_roofline(dryrun_record, tmp_path):
+    _record_feeds_the_roofline(dryrun_record["qwen2-7b"]["rec"], tmp_path)
+
+
+# reduced qwen3-moe: the MoE layer's slot maps, dispatch and combine run
+# on the mesh (its experts on the model axis)
+
+def test_moe_dryrun_parameter_bytes_are_the_local_blocks(dryrun_record):
+    _parameter_bytes_are_the_local_blocks(
+        dryrun_record["qwen3-moe-235b-a22b"])
+
+
+def test_moe_dryrun_dot_flops_over_ranks_equal_the_unsharded(dryrun_record):
+    _dot_flops_over_ranks_equal_the_unsharded(
+        dryrun_record["qwen3-moe-235b-a22b"])
+
+
+def test_moe_dryrun_record_feeds_the_roofline(dryrun_record, tmp_path):
+    _record_feeds_the_roofline(dryrun_record["qwen3-moe-235b-a22b"]["rec"],
+                               tmp_path)

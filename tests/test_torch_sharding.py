@@ -257,3 +257,50 @@ def test_leaf_specs_equal_the_references(arch, mesh):
                 assert tuple(got) == want[lead:], (p, got, want)
                 seen.add(p)
         assert seen == set(port), sorted(set(port) - seen)[:5]
+
+
+def _block_case(kernel):
+    """(wrapper, operands) of ``kernel`` at small CPU shapes whose batch,
+    heads and experts all divide a (2, 2) mesh."""
+    from repro_torch import kernels
+    g = torch.Generator().manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+    if kernel == "flash_attention":
+        return (lambda *t: kernels.flash_attention(*t, causal=True),
+                (randn(4, 24, 8, 32), randn(4, 24, 4, 32),
+                 randn(4, 24, 4, 32)))
+    if kernel == "decode_attention":
+        return kernels.decode_attention, (
+            randn(4, 8, 32), randn(4, 300, 4, 32), randn(4, 300, 4, 32),
+            torch.tensor([300, 1, 200, 129], dtype=torch.int32))
+    if kernel == "moe_gmm":
+        return kernels.moe_gmm, (randn(8, 12, 32), randn(8, 32, 16))
+    return kernels.mamba2_ssd, (
+        randn(2, 40, 8, 16) * 0.5, torch.rand(2, 40, 8) + 0.05,
+        -torch.rand(8) - 0.1, randn(2, 40, 1, 16) * 0.5,
+        randn(2, 40, 1, 16) * 0.5)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention",
+                                    "moe_gmm", "mamba2_ssd"])
+def test_local_blocks_reassemble_the_unsharded_call(kernel):
+    """``kernels.sharded.on_local_blocks`` (the one-device check of a
+    kernel on a mesh's local blocks) cuts each operand as the sharded
+    path's placements do, and the blocks' outputs put back together
+    equal the unsharded call (the plain versions here: each block's rows
+    or heads are computed alone either way)."""
+    from repro_torch.kernels.sharded import on_local_blocks
+    fn, operands = _block_case(kernel)
+    whole = fn(*operands)
+    got, local = on_local_blocks(kernel, fn, operands,
+                                 {"data": 2, "model": 2}, whole)
+    assert len(local) == 1
+    shapes = local.pop()
+    for full, block in zip(operands, shapes):
+        assert block != tuple(full.shape) or full.dim() == 1
+    pairs = zip(got, whole) if isinstance(whole, tuple) else [(got, whole)]
+    for g, w in pairs:
+        assert g.shape == w.shape and not torch.isnan(g).any()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
