@@ -5,7 +5,21 @@
 
 Phases (any failure exits non-zero and prints no result line; a failed
 greedy-stream check lets the later phases run first, since none of them
-depends on it, so that one run reports every such failure):
+depends on it, so that one run reports every such failure).  Greedy
+streams and routing are held by the exactly arbitrated near-tie rule of
+``repro_torch.serve.parity``: where a tested stream first parts from
+the reference's, the exact run (the plain path one type up: float32 for
+bf16, float64 for float32; the weights upcast a layer at a time,
+teacher-forced along the common prefix, routed as the reference) must
+pick the tested token or lie within tau_logit of it; on an MoE model a
+divergence it refuses may still be accepted at its routing root, where
+each differing token's tested top-k set must be the exact run's or the
+exact run's top-k/top-(k+1) margin below tau_route.  The tau are the
+calibration's, by working type, scale and family
+(``scripts/torch_near_tie_calibration.py``); each divergence line
+prints the reference margin, the exact run's token and its distance to
+the tested one, tau and the exact run's noise this run measured beside
+it:
 
 1. set-up: the card's name and power limit, and the CUDA kernels built
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel);
@@ -27,8 +41,8 @@ depends on it, so that one run reports every such failure):
    on an identical pool through the plain path must give the same
    logits (relative error < 2e-2, and the kernel path no further from a
    float32 run of the tick than 1.5x the plain path), and the trace
-   replayed through the plain path may differ only at near-ties (top-2
-   margin < 0.05);
+   replayed through the plain path may differ only where the near-tie
+   rule accepts it;
 4. sync serve: ``ServeEngine(max_len=2048)`` on the same model serves
    prompts of 2000, 1537, 1024 and 517 tokens one at a time
    (``run(batch=1)``), then one batch of 4 equal 1024-token prompts
@@ -37,7 +51,7 @@ depends on it, so that one run reports every such failure):
    layer per decode step.  One decode step's logits against the plain
    path, and the greedy streams against the plain path's, as in 3;
 5. engines against each other: the sync engine replays phase 3's trace
-   and the paged engine's streams may differ from it only at near-ties;
+   and the paged engine's streams are held to it by the near-tie rule;
 6. profile: a paged decode tick and prefill chunk, a sync 2048-row
    prefill and a sync B = 4 decode step, host wall time against device
    time;
@@ -50,13 +64,13 @@ depends on it, so that one run reports every such failure):
    94 layers (random bf16 weights from a seed, ~42 GB) serves phase 3's
    trace; every request OK, ``moe_gmm`` launched 3 x n_layers x (decode
    ticks + prefill chunks) and the paged kernel n_layers x decode ticks.
-   One decode tick against the plain path with its routing logged: a
-   token whose top-8 experts differ on the two paths must be a routing
-   near-tie (plain top-8/top-9 probability margin < 1e-3 at its first
-   differing layer), the other tokens' logits within 2e-2; the greedy
-   streams against the plain path's may differ only at a logit near-tie
-   or at a routing near-tie (the first differing routing along the
-   teacher-forced stream);
+   One decode tick against the plain path and the float32 run (routed
+   as the plain path) with its routing logged: a token whose top-8
+   experts differ on the two paths must route at its first differing
+   layer as float32 does, or where float32's top-8/top-9 probability
+   margin is below tau_route; the
+   other tokens' logits within 2e-2; the greedy streams against the
+   plain path's by the near-tie rule, routing roots included;
 9. MoE sync serve: prompts of 2000 and 517 tokens one at a time at
    ``max_len`` 2048; flash n_layers x prefills, decode n_layers x decode
    steps, ``moe_gmm`` 3 x n_layers x (prefills + decode steps); the same
@@ -87,7 +101,8 @@ depends on it, so that one run reports every such failure):
     2e-2 of the plain path, the state handoff (a decode step after a
     prefill of S - 1 tokens against ``forward``'s logits at S) within
     3e-2 as the reference's own test, and the streams of ``run(batch=1)``
-    to the plain path's up to near-ties;
+    to the plain path's by the near-tie rule (a float64 run arbitrating,
+    at the float32 readings' tau);
 13. SSM profile: a mamba2 B = 1 decode step and a 2048-row prefill (and
     the SSD kernels' share of the prefill's device time);
 14. hybrid sync serve: jamba-v0.1-52b at full width cut in depth to one
@@ -126,11 +141,10 @@ depends on it, so that one run reports every such failure):
     sync engine on prompts of 2000 and 517 tokens (``moe_gmm`` 3 x 26 x
     steps, flash and decode 0: MLA attends on the plain path); the
     streams by phase 9's rules; a decode step of 8 x 512-token prompts
-    held to float32 (the weights converted in place): the kernel path's
-    logits and its routing no further from float32's than 1.5x the plain
-    path's, phase 9's routing rule printed beside the plain path's own
-    token-by-token run (at this depth the rule does not hold between the
-    plain path and itself);
+    held to float32 (the weights upcast a layer at a time): the kernel
+    path's logits no further from float32's than 1.5x the plain path's,
+    its routing by phase 9's float32-arbitrated rule, and that rule
+    printed for the plain path's own token-by-token run;
 18. llama-3.2-vision-90b at full width cut to two 5-layer periods (8 self-
     and 2 gated cross-attention layers, ~21.3 GB), gates and (1, 4100,
     8192) media from the seed: non-causal flash at S = 2000, T = 4100
@@ -230,8 +244,8 @@ depends on it, so that one run reports every such failure):
     and n_layers x steps, each in its own shard body; the first decode
     step's logits within 2e-2 relative error of the unsharded step's and
     the largest absolute difference printed (identical is expected); the
-    sharded path's greedy tokens may leave the unsharded stream only at a
-    near-tie (top-2 margin < 0.05); the sharded and unsharded decode
+    sharded path's greedy tokens may leave the unsharded stream only
+    where the near-tie rule accepts it; the sharded and unsharded decode
     step's wall time and device idle share; (b) ``mamba2_ssd`` at
     mamba2-370m's width (B = 4, S = 1024) and ``moe_gmm`` at qwen3-moe's
     decode gate/up on replicated DTensor operands, which send them
@@ -315,10 +329,6 @@ LOGIT_REL_TOL = 2e-2
 MOE = dict(arch="qwen3-moe-235b-a22b", n_layers=8, seed=0)
 MOE_SYNC = dict(max_len=2048, prompts=(2000, 517), n_steps=16,
                 check_batch=(8, 512), seed=2)
-# a token whose top-k and top-(k+1) router probabilities lie closer than
-# this on the plain path may route differently under the kernel path's
-# rounding: a routing near-tie (repro_torch.serve.parity)
-ROUTING_MARGIN = 1e-3
 # mamba2-370m at full width and depth: ~0.37 B params, ~0.74 GB in bf16
 SSM = dict(arch="mamba2-370m", seed=3)
 SSM_SYNC = dict(max_len=2048, prompts=(2000, 1537, 1024, 517), n_steps=16,
@@ -928,10 +938,9 @@ def decode_timing(torch, q, k, v, lens, want=None):
 
 # -- phase 3 --------------------------------------------------------------
 
-def serve_trace(vocab: int):
+def serve_trace(vocab: int, seed: int = SERVE["seed"]):
     from repro_torch.serve import get_trace
-    reqs = get_trace("shared_prefix")(SERVE["requests"], vocab,
-                                      seed=SERVE["seed"],
+    reqs = get_trace("shared_prefix")(SERVE["requests"], vocab, seed=seed,
                                       prefix_len=SERVE["prefix_len"])
     for r in reqs:
         r.n_steps = SERVE["n_steps"]
@@ -947,7 +956,6 @@ def new_engine(cfg, params):
 def phase_serve(torch, cfg, params):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import OK
-    from repro_torch.serve.parity import NEAR_TIE, divergences
 
     # warm-up on a throwaway engine: cuBLAS handles, the kernel library
     warm = serve_trace(cfg.vocab_size)[:2]
@@ -995,14 +1003,7 @@ def phase_serve(torch, cfg, params):
           "plain-path replay did not finish every request OK")
     check(p_stats.ticks == stats.ticks, f"plain replay took "
           f"{p_stats.ticks} ticks, the kernel path {stats.ticks}")
-    div = divergences(plain, reqs, p_results, results)
-    for d in div:
-        print(f"request {d['request']}: kernel and plain paths diverge at "
-              f"step {d['step']}, plain top-2 margin {d['margin']}")
-    check(all(d["near_tie"] for d in div),
-          f"greedy streams diverge above the {NEAR_TIE} near-tie margin")
-    print(f"greedy tokens: {len(reqs) - len(div)}/{len(reqs)} requests "
-          f"identical to the plain path, the rest diverge at near-ties")
+    judge_streams(plain, reqs, p_results, results)
     return launches, reqs, results
 
 
@@ -1074,24 +1075,44 @@ def logit_check(torch, label: str, cfg, plain_cfg, params, state, step, *,
               f"float32 ({rk:.3g}) than 1.5x the plain path ({rp:.3g})")
 
 
-def streams_check(torch, eng, plain, reqs, results, *, enforce=True):
-    """Greedy streams of ``eng`` against ``plain``'s replay of ``reqs``:
-    each may first differ only at a near-tie (``enforce``; else the
-    divergences are printed only)."""
-    from repro_torch.serve.parity import NEAR_TIE, divergences
-    p_results, _ = plain.run(reqs)
-    div = divergences(plain, reqs, p_results, results)
+def judge_streams(reference, reqs, ref_results, results,
+                  what="kernel and plain paths", *, engine=None,
+                  enforce=True, later=False):
+    """The exactly arbitrated near-tie rule (``repro_torch.serve.parity``)
+    on ``results`` against ``reference``'s ``ref_results``: every first
+    divergence printed with its verdict (the reference margin, the exact
+    run's token, the tested token's distance below it, tau, and the
+    exact run's noise this run measured along the common prefix; with
+    ``engine``, an MoE routing root) and, with ``enforce``, each must be
+    accepted (``later``: the run fails at its end).  The exact run is
+    the plain path one type up: float32 for bf16, float64 for float32."""
+    from repro_torch.serve.parity import (EXACT, describe, divergences,
+                                          taus, tau_route)
+    cfg = reference.cfg
+    div = divergences(reference, reqs, ref_results, results, engine=engine)
     for d in div:
-        print(f"request {d['request']}: kernel and plain paths diverge at "
-              f"step {d['step']}, plain top-2 margin {d['margin']}")
-    n_tie = sum(d["near_tie"] for d in div)
-    print(f"greedy tokens ({eng.cfg.dtype}): {len(reqs) - len(div)}/"
-          f"{len(reqs)} requests identical to the plain path, {n_tie} "
-          f"diverge at near-ties (top-2 margin < {NEAR_TIE}), "
-          f"{len(div) - n_tie} above")
+        print(describe(d, what))
+    n_ok = sum(d["accepted"] for d in div)
+    exact = EXACT[cfg.dtype]
+    print(f"greedy tokens ({cfg.dtype}): {len(reqs) - len(div)}/"
+          f"{len(reqs)} requests identical, {n_ok} diverge where {exact} "
+          f"accepts it (tau {taus(cfg)[0]:.4g}"
+          + ("" if engine is None or cfg.moe is None
+             else f", routing tau {tau_route(cfg):.4g}")
+          + f"), {len(div) - n_ok} refused")
     if enforce:
-        check_later(n_tie == len(div), f"{eng.cfg.name}: greedy streams "
-                    f"diverge above the {NEAR_TIE} near-tie margin")
+        (check_later if later else check)(
+            n_ok == len(div), f"{cfg.name}: {what}: {len(div) - n_ok} "
+            f"greedy streams diverge where {exact} refuses it")
+
+
+def streams_check(torch, eng, plain, reqs, results, *, enforce=True):
+    """Greedy streams of ``eng`` against ``plain``'s replay of ``reqs``,
+    by the exactly arbitrated rule (``enforce``; else the divergences
+    and their verdicts are printed only)."""
+    p_results, _ = plain.run(reqs)
+    judge_streams(plain, reqs, p_results, results, enforce=enforce,
+                  later=True)
 
 
 def paged_logit_check(torch, cfg, plain_cfg, params, reqs):
@@ -1176,20 +1197,15 @@ def phase_sync_serve(torch, cfg, params):
 
 def phase_engines(torch, cfg, params, reqs, paged_results):
     """The sync engine (the greedy oracle) replays the paged phase's
-    trace; the paged engine's streams may differ only at near-ties."""
+    trace; the paged engine's streams are held to it by the
+    exactly arbitrated near-tie rule."""
     from repro_torch.serve import ServeEngine
-    from repro_torch.serve.parity import NEAR_TIE, divergences
     sync = ServeEngine(cfg, params, max_len=SERVE["max_len"], device="cuda")
     s_results, _ = sync.run(reqs)
-    div = divergences(sync, reqs, s_results, paged_results)
-    for d in div:
-        print(f"request {d['request']}: sync and paged engines diverge at "
-              f"step {d['step']}, sync top-2 margin {d['margin']}")
-    check(all(d["near_tie"] for d in div), f"sync and paged engines "
-          f"diverge above the {NEAR_TIE} near-tie margin")
     print(f"sync vs paged engine on the {len(reqs)}-request shared-prefix "
-          f"trace: {len(reqs) - len(div)}/{len(reqs)} greedy streams "
-          f"identical, the rest diverge at near-ties")
+          f"trace:")
+    judge_streams(sync, reqs, s_results, paged_results,
+                  "sync and paged engines")
 
 
 # -- phase 6 --------------------------------------------------------------
@@ -1357,49 +1373,48 @@ def moe_gmm_record(torch, cfg, cases=None, seed: int = 4):
 
 def moe_logit_check(torch, label, cfg, plain_cfg, params, state, step):
     """One decode step on identical copies of ``state`` through the
-    kernel and the plain path, with the routing of every layer logged.
-    The step's rows are independent (one group each), so each row's
-    first layer whose top-k set differs is where its routing flipped:
-    the plain path's top-k / top-(k+1) margin there must be below
-    ``ROUTING_MARGIN`` (a near-tie), and the rows that never flipped
-    must meet the ``LOGIT_REL_TOL`` relative error.  (No float32
-    yardstick here: a float32 copy of the weights would not fit.)"""
-    from repro_torch.serve.parity import routing_differences, routing_log
+    kernel path, the plain path and the exact run (the plain path one
+    type up, the weights upcast a layer at a time, the state upcast,
+    routed as the plain path routes), with the routing of every layer
+    logged.  The step's rows are independent (one group each), so each
+    row's first layer whose top-k set differs between the kernel and the
+    plain path is where its routing flipped: there the kernel path's set
+    must be the exact run's, or the exact run's top-k / top-(k+1) margin
+    must lie below tau_route (the rule of ``repro_torch.serve.parity``);
+    the rows that never flipped must meet the ``LOGIT_REL_TOL`` relative
+    error.  Prints the routing noise between the plain path and the
+    exact run in this step beside tau_route."""
+    from repro_torch.serve.parity import (EXACT, exact_run, routing_log,
+                                          routing_noise, routing_verdicts,
+                                          tau_route)
     out, logs = {}, {}
     for name, c in (("kernel", cfg), ("plain", plain_cfg)):
-        st = _map(lambda t: t.clone(), state)
-        with routing_log() as log:
-            out[name] = step(c, params, st).float()
-        logs[name] = log
-        del st
+        with routing_log() as logs[name]:
+            out[name] = step(c, params,
+                             _map(lambda t: t.clone(), state)).float()
+    x_cfg, x_params, ctx = exact_run(cfg, params)
+    with ctx(), routing_log(follow=logs["plain"]) as logs["exact"]:
+        step(x_cfg, x_params, _map(lambda t: t.float(), state))
     torch.cuda.empty_cache()
     check(bool(torch.isfinite(out["kernel"]).all()), "non-finite logits")
-    rows = out["kernel"].shape[0]
-    first = {}                               # row -> (layer, margin)
-    n_pairs = 0
-    for layer, diff in routing_differences(cfg.moe.top_k, logs["kernel"],
-                                           logs["plain"]):
-        n_pairs += len(diff)
-        for r, m in diff:
-            first.setdefault(r, (layer, m))
+    top_k, rows, exact = cfg.moe.top_k, out["kernel"].shape[0], EXACT[cfg.dtype]
+    tau = tau_route(cfg)
+    first = routing_verdicts(top_k, logs["kernel"], logs["plain"],
+                             logs["exact"], tau)
+    noise = routing_noise(top_k, logs["plain"], logs["exact"])
     same = [r for r in range(rows) if r not in first]
-    print(f"{label}: {n_pairs} of {rows * len(logs['plain'])} (token, "
-          f"layer) pairs route to different top-{cfg.moe.top_k} sets on the "
-          f"two paths; {len(first)} of {rows} tokens flip somewhere")
-    for r, (layer, m) in sorted(first.items()):
-        print(f"  token {r}: first differs at layer {layer}, plain top-"
-              f"{cfg.moe.top_k}/top-{cfg.moe.top_k + 1} margin {m:.3g}")
-        check(m < ROUTING_MARGIN, f"{label}: token {r} routes differently "
-              f"at layer {layer} with a plain-path margin {m:.3g} >= "
-              f"{ROUTING_MARGIN}: not a routing near-tie")
-    if first:
-        smallest = min(m for _, m in first.values())
-        print(f"  case: routing near-ties (smallest margin {smallest:.3g}"
-              f" < {ROUTING_MARGIN}); the relative-error limit holds over "
-              f"the {len(same)} tokens that never flipped")
-    else:
-        print("  case: every top-k set identical; the relative-error limit "
-              "holds over every token")
+    print(f"{label}: {len(first)} of {rows} tokens route to a different "
+          f"top-{top_k} set on the two paths somewhere; routing tau "
+          f"{tau:.4g}, {exact} routing noise in this step {noise:.4g}")
+    for r, v in sorted(first.items()):
+        print(f"  token {r}: first differs at layer {v['call']}, plain "
+              f"margin {v['ref_margin']:.3g}, {exact} margin "
+              f"{v['exact_margin']:.3g}, kernel path "
+              f"{'as' if v['as_exact'] else 'unlike'} {exact}: "
+              f"{'accepted' if v['accepted'] else 'REFUSED'}")
+        check(v["accepted"], f"{label}: token {r} routes differently at "
+              f"layer {v['call']}, unlike {exact}, whose margin "
+              f"{v['exact_margin']:.3g} >= tau {tau:.4g}")
     if same:
         k, p = out["kernel"][same], out["plain"][same]
         r = float((k - p).norm() / p.norm())
@@ -1407,30 +1422,9 @@ def moe_logit_check(torch, label, cfg, plain_cfg, params, state, step):
               f"plain relative error {r:.3g} (limit {LOGIT_REL_TOL})")
         check(r < LOGIT_REL_TOL, f"{label} logits: kernel vs plain path "
               f"relative error {r:.3g} >= {LOGIT_REL_TOL}")
-    return {"pairs": n_pairs, "flipped": len(first),
-            "margin": min((m for _, m in first.values()), default=None)}
-
-
-def moe_streams_check(kernel, plain, reqs, p_results, results, *,
-                      later: bool = False):
-    """Greedy streams of the kernel path against the plain path's: a
-    stream may first differ at a logit near-tie or at a routing near-tie
-    (``repro_torch.serve.parity``, margin ``ROUTING_MARGIN``)."""
-    from repro_torch.serve.parity import NEAR_TIE, divergences
-    div = divergences(plain, reqs, p_results, results, engine=kernel,
-                      routing_margin=ROUTING_MARGIN)
-    for d in div:
-        why = f"top-2 logit margin {d['margin']}"
-        if "routing" in d:
-            why += f" >= {NEAR_TIE}; first routing difference {d['routing']}"
-        print(f"request {d['request']}: kernel and plain paths diverge at "
-              f"step {d['step']}, {why}")
-    (check_later if later else check)(
-        all(d["near_tie"] for d in div), f"{kernel.cfg.name}: greedy "
-        f"streams diverge above the {NEAR_TIE} logit and the "
-        f"{ROUTING_MARGIN} routing near-tie margins")
-    print(f"greedy tokens: {len(reqs) - len(div)}/{len(reqs)} requests "
-          f"identical to the plain path, the rest diverge at near-ties")
+    return {"flipped": len(first), "noise": noise,
+            "exact_margin": min((v["exact_margin"] for v in first.values()),
+                                default=None)}
 
 
 def phase_moe_serve(torch, cfg, params):
@@ -1491,7 +1485,7 @@ def phase_moe_serve(torch, cfg, params):
           "plain-path replay did not finish every request OK")
     check(p_stats.ticks == stats.ticks, f"plain replay took "
           f"{p_stats.ticks} ticks, the kernel path {stats.ticks}")
-    moe_streams_check(eng, plain, reqs, p_results, results)
+    judge_streams(plain, reqs, p_results, results, engine=eng)
     return launches, routing
 
 
@@ -1543,7 +1537,7 @@ def phase_moe_sync(torch, cfg, params):
     plain = ServeEngine(plain_cfg, params, max_len=MOE_SYNC["max_len"],
                         device="cuda")
     p_results, _ = plain.run(reqs)
-    moe_streams_check(eng, plain, reqs, p_results, results)
+    judge_streams(plain, reqs, p_results, results, engine=eng)
     return launches, routing
 
 
@@ -1761,8 +1755,8 @@ def phase_ssm_sync(torch, cfg, params):
           f"{launches}")
 
     # bf16: 48 random-weight SSM layers amplify rounding far past the
-    # 2e-2 logit, 3e-2 handoff and 0.05 near-tie limits (the plain path's
-    # own bf16 logits lie ~30% from its float32 ones), so in bf16 the
+    # 2e-2 logit and 3e-2 handoff limits (the plain path's own bf16
+    # logits lie ~30% from its float32 ones), so in bf16 the
     # kernel path is held to the float32 yardstick only; the limits hold
     # the same model in float32 (weights upcast, ~1.5 GB), where the
     # kernel and plain paths differ by f32 rounding
@@ -1852,7 +1846,7 @@ def phase_hybrid_sync(torch, cfg, params):
     plain = ServeEngine(plain_cfg, params, max_len=HYBRID_SYNC["max_len"],
                         device="cuda")
     p_results, _ = plain.run(reqs)
-    moe_streams_check(eng, plain, reqs, p_results, results)
+    judge_streams(plain, reqs, p_results, results, engine=eng)
     return launches, routing
 
 
@@ -2231,7 +2225,7 @@ def phase_mla(torch, records):
     plain = ServeEngine(plain_cfg, params, max_len=MLA_SYNC["max_len"],
                         device="cuda")
     p_results, _ = plain.run(reqs)
-    moe_streams_check(eng, plain, reqs, p_results, results, later=True)
+    judge_streams(plain, reqs, p_results, results, engine=eng, later=True)
     del plain
     batch = rng.integers(0, cfg.vocab_size, MLA_SYNC["check_batch"]
                          ).astype(np.int32)
@@ -2250,53 +2244,50 @@ def phase_mla(torch, records):
 
 
 def f32_routing_readings(torch, label, cfg, params, state, tok, step):
-    """One MoE decode step run five ways on identical state, with routing
+    """One MoE decode step run four ways on identical state, with routing
     logged: the kernel path, the plain path, and the plain path token by
     token (cuBLAS's M = 1 kernels: the same function, rounded otherwise)
-    in bf16, then the plain path in float32 with the weights converted
-    in place (``params`` is float32 after: a float32 copy beside the
-    bf16 one does not fit the card).  Prints and returns, for each pair,
-    the (token, layer) pairs whose top-k sets differ and each token's
-    first such layer with the second run's top-k/top-(k+1) margin
-    there, and each bf16 run's logits' relative distance from float32's.
-    ``step(cfg, params, state, tokens)`` returns the logits; ``state``'s
-    leading axis and ``tok``'s rows are the step's tokens."""
-    from repro_torch.serve.parity import routing_differences, routing_log
+    in bf16, then the float32 run (the plain path in float32, the
+    weights upcast a layer at a time, the state upcast), free and routed
+    as the plain path (``"f32 routed as plain"``: the arbiter of the
+    routing rule).  Prints and returns, for each pair, the (token,
+    layer) pairs whose top-k sets differ and each token's first such
+    layer with the second run's top-k/top-(k+1) margin there, each bf16
+    run's logits' relative distance from the free float32 run's, and
+    the routing logs.  ``step(cfg, params, state, tokens)`` returns the
+    logits; ``state``'s leading axis and ``tok``'s rows are the step's
+    tokens."""
+    from repro_torch.serve.parity import (exact_run, routing_differences,
+                                          routing_log)
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)
     B = tok.shape[0]
     out, logs = {}, {}
 
-    def run(c, st, t):
-        with routing_log() as log:
-            y = step(c, params, st, t).float()
+    def run(c, p, st, t, follow=None):
+        with routing_log(follow) as log:
+            y = step(c, p, st, t).float()
         return y, log
 
     for name, c in (("kernel", cfg), ("plain", plain_cfg)):
-        out[name], logs[name] = run(c, _map(lambda t: t.clone(), state), tok)
+        out[name], logs[name] = run(c, params,
+                                    _map(lambda t: t.clone(), state), tok)
     rows, per_row = [], []
     for b in range(B):
-        y, log = run(plain_cfg, _map(lambda t: t[b:b + 1].clone(), state),
-                     tok[b:b + 1])
+        y, log = run(plain_cfg, params,
+                     _map(lambda t: t[b:b + 1].clone(), state), tok[b:b + 1])
         rows.append(y)
         per_row.append(log)
     out["plain B=1"] = torch.cat(rows)
     logs["plain B=1"] = [torch.cat([t[i] for t in per_row])
                          for i in range(len(per_row[0]))]
     check(bool(torch.isfinite(out["kernel"]).all()), "non-finite logits")
-
-    def upcast(tree):
-        for k, v in (tree.items() if isinstance(tree, dict)
-                     else enumerate(tree)):
-            if isinstance(v, (dict, list)):
-                upcast(v)
-            else:
-                tree[k] = v.float()
-
-    upcast(params)                      # in place: leaf by leaf
+    x_cfg, x_params, _ = exact_run(cfg, params)
+    out["f32"], logs["f32"] = run(x_cfg, x_params,
+                                  _map(lambda t: t.float(), state), tok)
+    _, logs["f32 routed as plain"] = run(
+        x_cfg, x_params, _map(lambda t: t.float(), state), tok,
+        follow=logs["plain"])
     torch.cuda.empty_cache()
-    out["f32"], logs["f32"] = run(
-        dataclasses.replace(plain_cfg, dtype="float32"),
-        _map(lambda t: t.float(), state), tok)
     top_k, n_calls = cfg.moe.top_k, len(logs["f32"])
     pairs = {}
     for a, ref in (("kernel", "plain"), ("plain B=1", "plain"),
@@ -2309,43 +2300,52 @@ def f32_routing_readings(torch, label, cfg, params, state, tok, step):
                 first.setdefault(r, (call, m))
         pairs[f"{a} vs {ref}"] = {"differing": n, "first": {
             r: {"layer": l, "margin": m} for r, (l, m) in sorted(first.items())}}
-        margins = [m for _, m in first.values()]
         print(f"{label}: {a} vs {ref}: {n} of {B * n_calls} (token, layer) "
               f"pairs route to different top-{top_k} sets; {len(first)} of "
-              f"{B} tokens flip, {sum(m >= ROUTING_MARGIN for m in margins)} "
-              f"first at a {ref} top-{top_k}/top-{top_k + 1} margin >= "
-              f"{ROUTING_MARGIN} (largest first margin "
-              f"{max(margins, default=0.0):.6f})")
+              f"{B} tokens flip (largest {ref} top-{top_k}/top-{top_k + 1} "
+              f"margin where one first flips "
+              f"{max((m for _, m in first.values()), default=0.0):.6f})")
     rel = {name: float((out[name] - out["f32"]).norm() / out["f32"].norm())
            for name in ("kernel", "plain", "plain B=1")}
     print(f"{label} logits against float32: kernel path {rel['kernel']:.5f}, "
           f"plain path {rel['plain']:.5f}, plain path token by token "
           f"{rel['plain B=1']:.5f}")
-    return {"pairs": pairs, "logits_rel_to_f32": rel}
+    return {"pairs": pairs, "logits_rel_to_f32": rel, "logs": logs}
 
 
 def f32_routing_check(torch, label, cfg, params, state, tok, step):
-    """deepseek's decode step held to float32.  Phase 9's routing rule
-    (a token may route differently from the plain path only first where
-    the plain top-k/top-(k+1) margin is below ``ROUTING_MARGIN``) lies
-    below the plain path's own rounding noise at this depth and router:
-    run token by token, the plain path flips routing against itself at
-    every token, some first at margins above the limit.  So the step is
-    held to float32 (``f32_routing_readings``), as the other phases are:
+    """deepseek's decode step held to float32 (``f32_routing_readings``):
     the kernel path's logits no further from float32 than 1.5x the plain
-    path's, and its routing differing from float32's at no more (token,
-    layer) pairs than 1.5x the plain path's.  ``params`` is float32
-    after."""
+    path's, and its routing by the exactly arbitrated rule of phase 9
+    (each token's first layer routed unlike the plain path routed as
+    float32, routed as the plain path upstream, routes it, or at a
+    float32 margin below tau_route)."""
+    from repro_torch.serve.parity import (routing_noise, routing_verdicts,
+                                          tau_route)
     r = f32_routing_readings(torch, label, cfg, params, state, tok, step)
-    rel, pairs = r["logits_rel_to_f32"], r["pairs"]
-    k32, p32 = pairs["kernel vs f32"]["differing"], \
-        pairs["plain vs f32"]["differing"]
+    rel, logs = r["logits_rel_to_f32"], r["logs"]
     check(rel["kernel"] <= 1.5 * rel["plain"], f"{label}: the kernel path is "
           f"further from float32 ({rel['kernel']:.4g}) than 1.5x the plain "
           f"path ({rel['plain']:.4g})")
-    check(k32 <= 1.5 * p32, f"{label}: the kernel path routes unlike float32 "
-          f"at {k32} (token, layer) pairs, more than 1.5x the plain path's "
-          f"{p32}")
+    top_k, arbiter = cfg.moe.top_k, logs["f32 routed as plain"]
+    tau = tau_route(cfg)
+    print(f"{label}: float32 routing noise of the plain path in this step "
+          f"{routing_noise(top_k, logs['plain'], arbiter):.4g} (routing "
+          f"tau {tau:.4g})")
+    for name in ("kernel", "plain B=1"):
+        first = routing_verdicts(top_k, logs[name], logs["plain"], arbiter,
+                                 tau)
+        bad = {row: v for row, v in first.items() if not v["accepted"]}
+        as_f32 = sum(v["as_exact"] for v in first.values())
+        print(f"{label}: {name} vs plain by the float32-arbitrated rule: "
+              f"{len(first)} tokens flip, {as_f32} to float32's set, "
+              f"{len(first) - as_f32 - len(bad)} at a float32 near-tie, "
+              f"{len(bad)} refused" + "".join(
+                  f"; token {row} at layer {v['call']}: float32 margin "
+                  f"{v['exact_margin']:.4g}" for row, v in sorted(bad.items())))
+        if name == "kernel":
+            check(not bad, f"{label}: {len(bad)} tokens route unlike the "
+                  f"plain path and unlike float32 above routing tau {tau:.4g}")
 
 
 class ModelLoop:
@@ -2359,6 +2359,14 @@ class ModelLoop:
     def __init__(self, cfg, params, extras, max_len: int):
         self.cfg, self.params = cfg, params
         self.extras, self.max_len = extras, max_len
+
+    def twin(self, cfg, params) -> "ModelLoop":
+        """This loop on other weights, the extras in ``cfg``'s type: how
+        ``repro_torch.serve.parity.exact_engine`` builds its exact run."""
+        from repro_torch.models.layers import DTYPES
+        return ModelLoop(cfg, params, {k: v.to(DTYPES[cfg.dtype])
+                                       for k, v in self.extras.items()},
+                         self.max_len)
 
     def prefill(self, prompt):
         """(V,) logits of the prompt's last token, and the cache."""
@@ -3366,6 +3374,29 @@ def sharded_streams(torch, cfg, params, mesh, prompt, stream=None):
     return out, greedy, torch.stack(fed, 1), cache, pos + SHARDED["n_steps"]
 
 
+def sharded_divergences(torch, cfg, params, prompt, stream, greedy):
+    """The sharded path's tokens (``greedy``, teacher-forced along the
+    unsharded ``stream``) against that stream by the exactly arbitrated
+    near-tie rule (``judge_streams`` with the unsharded engine as the
+    reference).  Returns the number of requests that differ."""
+    import numpy as np
+    from repro_torch.serve import Request, RequestResult, ServeEngine
+
+    def result(toks):
+        return RequestResult(tokens=toks.cpu().numpy().astype(np.int32),
+                             prompt_len=prompt.shape[1], arrival=0,
+                             admitted=0, finished=0, emit_times=[])
+
+    reqs = [Request(prompt=p.cpu().numpy(), n_steps=stream.shape[1])
+            for p in prompt]
+    unsharded = ServeEngine(cfg, params, max_len=SHARDED["max_len"],
+                            device="cuda")
+    judge_streams(unsharded, reqs, [result(t) for t in stream],
+                  [result(t) for t in greedy], "sharded and unsharded paths",
+                  later=True)
+    return int((greedy != stream).any(1).sum())
+
+
 def sharded_kernel_checks(torch, mesh):
     """(b): ``mamba2_ssd`` and ``moe_gmm`` through the sharded path (one
     shard body each: the wrappers take replicated DTensor operands) held
@@ -3596,7 +3627,6 @@ def phase_sharded(torch, cfg, params, card: str, mesh):
     from repro_torch.models import decode_step
     from repro_torch.models.model import param_axes_rule
     from repro_torch.parallel.api import place_tree, set_mesh
-    from repro_torch.serve.parity import NEAR_TIE
     t0 = time.perf_counter()
     work = tempfile.TemporaryDirectory()
     out_dir = Path(work.name) / "dryrun"
@@ -3639,20 +3669,7 @@ def phase_sharded(torch, cfg, params, card: str, mesh):
           f"over the prefill and every step {max_abs:.4g}")
     check(rel < LOGIT_REL_TOL, f"sharded decode step's logits: relative "
           f"error {rel:.3g} >= {LOGIT_REL_TOL}")
-    n_div = 0
-    for b in range(SHARDED["batch"]):
-        diff = (greedy[b] != stream[b]).nonzero()
-        if len(diff):
-            i = int(diff[0])
-            top = torch.topk(plain[i][b], 2).values
-            margin = float(top[0] - top[1])
-            n_div += 1
-            print(f"request {b}: the sharded path's token leaves the "
-                  f"unsharded stream at step {i}, unsharded top-2 margin "
-                  f"{margin:.4g}")
-            check_later(margin < NEAR_TIE, f"sharded qwen2-7b: request "
-                        f"{b} diverges at step {i} above the near-tie "
-                        f"margin ({margin:.4g} >= {NEAR_TIE})")
+    n_div = sharded_divergences(torch, cfg, params, prompt, stream, greedy)
     print(f"greedy streams: {SHARDED['batch'] - n_div}/"
           f"{SHARDED['batch']} identical to the unsharded path's")
     tok = stream[:, -1:]
@@ -3814,9 +3831,9 @@ def phase_twins(torch, card: str):
             check(counts[k] > 0, f"examples/{name}.py: {k} never launched")
         launches[name] = ran
         if name == "torch_serve_resilience":
-            check("near-tie rule (first difference below margin 0.05): "
-                  "held" in text, "serve resilience act 3: the recomputed "
-                  "streams break the near-tie rule")
+            check("float32-arbitrated near-tie rule: held" in text,
+                  "serve resilience act 3: the recomputed streams break "
+                  "the near-tie rule")
             check("pool fully reclaimed: True" in text,
                   "serve resilience act 3: the pool was not reclaimed")
     out, err = lint.communicate(timeout=120)

@@ -18,8 +18,9 @@ Three acts:
    emitted through prefill where the fault-free run took decode steps,
    so its stream is held to the fault-free run's by the near-tie rule
    (``repro_torch.serve.parity``): equal, or first different at a step
-   where the fault-free engine's top-2 logit margin is below
-   ``NEAR_TIE`` (0.05).  The report names that step and margin.
+   where float32 (the plain path in float32, teacher-forced along the
+   common prefix) picks the recomputed token or lies within tau of it.
+   The report prints each divergence's verdict.
 
     PYTHONPATH=src python examples/torch_serve_resilience.py
     PYTHONPATH=src python examples/torch_serve_resilience.py --seed 3
@@ -43,7 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serve import (OK, DeadlineAwareShed, Fault, FaultPlan,
                                PagedServeEngine, Request, get_trace)
-from repro_torch.serve.parity import NEAR_TIE, divergences
+from repro_torch.serve.parity import describe, divergences
 
 
 def show(title, results, stats):
@@ -117,15 +118,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     divs = divergences(quiet, [small[i] for i in ok], [base[i] for i in ok],
                        [chaos[i] for i in ok], engine=chaos_eng)
     for d in divs:
-        where = "lengths differ" if d["step"] is None else (
-            f"first differs at step {d['step']}, fault-free top-2 margin "
-            f"{d['margin']:.4g}")
-        print(f"    request {ok[d['request']]}: {where}")
-    held = all(d["near_tie"] for d in divs)
+        d = dict(d, request=ok[d["request"]])
+        print("    " + describe(d, "recomputed and fault-free streams"))
+    held = all(d["accepted"] for d in divs)
     print(f"    recomputed tokens vs fault-free run: "
-          f"{len(ok) - len(divs)}/{len(ok)} streams equal; near-tie rule "
-          f"(first difference below margin {NEAR_TIE}): "
-          f"{'held' if held else 'BROKEN'}")
+          f"{len(ok) - len(divs)}/{len(ok)} streams equal; float32-"
+          f"arbitrated near-tie rule: {'held' if held else 'BROKEN'}")
     print(f"    pool fully reclaimed: "
           f"{chaos_eng.cache.free_blocks == chaos_eng.cache.capacity}")
     return 0

@@ -124,6 +124,12 @@ def attention_as(torch, name):
     return fn
 
 
+# the margin-only near-tie rule these studies were first run against:
+# a reference top-2 margin below it (repro_torch.serve.parity now asks
+# the float32 run instead)
+MARGIN_RULE = 0.05
+
+
 def rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
@@ -177,7 +183,9 @@ def study(torch, cfg, params, names, n_prompts: int, n_steps: int):
                 "phase4_divergences": [
                     {"request": d["request"], "step": d["step"],
                      "plain_margin": d["margin"]} for d in div],
-                "phase4_above_near_tie": sum(not d["near_tie"] for d in div),
+                "phase4_above_near_tie": sum(d["margin"] >= MARGIN_RULE
+                                             for d in div),
+                "phase4_refused": sum(not d["accepted"] for d in div),
                 "decode_step_vs_plain": rel(step[True], step[False]),
                 "prefill_vs_plain": prefill,
                 "positions": len(dists), "token_differs": len(flips),

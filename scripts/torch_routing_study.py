@@ -7,9 +7,10 @@ plain path token by token in bf16, and the plain path in float32
 (``chip_smoke.f32_routing_readings``).  It prints what phase 17 prints
 without holding any limit: each pair's differing (token, layer) routing
 pairs, each token's first such layer with its top-6/top-7 margin, and
-each bf16 run's logits' distance from float32's.  Phase 9's rule
-(``chip_smoke.ROUTING_MARGIN``, the first margin of a kernel-vs-plain
-flip) can be read against the plain path's flips against itself.
+each bf16 run's logits' distance from float32's.  The margin-only
+routing rule the phase held before its float32-arbitrated rule (a
+kernel-vs-plain flip's first plain margin below 1e-3) can be read
+against the plain path's flips against itself.
 
     PYTHONPATH=src python3 scripts/torch_routing_study.py --out r.json
 """
@@ -59,6 +60,7 @@ def main() -> int:
         torch, f"{cfg.name} decode step (B={batch.shape[0]}, position {pos})",
         cfg, params, cache, logits.argmax(-1)[:, None],
         lambda c, p, cc, t: decode_step(c, p, cc, t, pos)[0])
+    result.pop("logs")
     if args.out:
         Path(args.out).write_text(json.dumps(dict(result, card=card),
                                              indent=1))

@@ -12,9 +12,9 @@ checkout's ``src``) to compare two versions of the kernels.
    width cut to one 8-layer period through the sync engine (its seeds,
    weights and prompts), with the decode step's routing differences and
    the greedy streams' first divergences printed with their plain-path
-   margins.  The phase fails where a token first routes differently at
-   a margin of ``chip_smoke.ROUTING_MARGIN`` or more, or a stream first
-   parts above both near-tie margins; here the failure is printed, not
+   margins.  The phase fails where its float32-arbitrated near-tie
+   rule (``repro_torch.serve.parity``) refuses a routing difference or
+   a stream's first divergence; here the failure is printed, not
    raised.
 
     PYTHONPATH=src python3 scripts/torch_ssd_study.py --out ssd.json

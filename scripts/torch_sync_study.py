@@ -87,10 +87,15 @@ def timing(torch, cfg, params, reps: int):
     return out
 
 
+# the margin-only near-tie rule this study was first run against: a
+# plain top-2 margin below it (repro_torch.serve.parity now asks the
+# float32 run instead)
+MARGIN_RULE = 0.05
+
+
 def agreement(torch, cfg, params, n_prompts: int, n_steps: int):
     import numpy as np
     from repro_torch.serve import Request, ServeEngine
-    from repro_torch.serve.parity import NEAR_TIE
     kern = ServeEngine(cfg, params, max_len=2048, device="cuda")
     plain_cfg = dataclasses.replace(cfg, use_kernels=False)
     plain = ServeEngine(plain_cfg, params, max_len=2048, device="cuda")
@@ -119,7 +124,7 @@ def agreement(torch, cfg, params, n_prompts: int, n_steps: int):
                 "kernel_vs_f32": float((lk - lf).norm() / lf.norm()),
                 "plain_vs_f32": float((lp - lf).norm() / lf.norm())})
     flips = [r for r in rows if r["kernel_token"] != r["plain_token"]]
-    above = [r for r in flips if r["plain_margin"] >= NEAR_TIE]
+    above = [r for r in flips if r["plain_margin"] >= MARGIN_RULE]
     mean = lambda k: statistics.fmean(r[k] for r in rows)   # noqa: E731
     summary = {
         "positions": len(rows), "kernel_differs_from_plain": len(flips),

@@ -439,7 +439,7 @@ class SimStats:
     stalled_ticks: int = 0
 
 
-def simulate_trace(trace: Sequence[Request], *,
+def simulate_trace(trace: Sequence[Union[Request, Tuple]], *,
                    max_len: int, max_batch: int, page: int,
                    n_blocks: Optional[int] = None,
                    prefill_chunk: int = 32,
@@ -466,8 +466,8 @@ def simulate_trace(trace: Sequence[Request], *,
     ``fault_plan`` objects the engine ran with: both are pure host logic
     whose effects are functions of the tick, so sharing the instances is
     safe.  ``trace`` holds :class:`~repro_torch.serve.api.Request`
-    objects only (a tuple raises ``TypeError``, as the port's engines
-    do; the reference still coerces them).
+    objects or legacy ``(prompt, n_steps[, arrival])`` tuples, coerced
+    with a one-shot ``DeprecationWarning`` as the engines coerce them.
     """
     from repro_torch.serve.resilience import (OK, PREEMPTED, QueueCapPolicy,
                                               queue_entries)

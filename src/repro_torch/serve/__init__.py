@@ -1,10 +1,11 @@
 """Serving layer (twin of ``repro.serve``): the synchronous bucket engine
 (the greedy oracle), the continuous-batching engine over the
-block-paged KV cache, their request schema, trace generators and
+block-paged KV cache behind the shared ``run(trace)`` protocol
+(:class:`ServeAPI`), their request schema, trace generators and
 graceful-degradation policies."""
 
 from repro_torch.serve.api import (Request, RequestResult,  # noqa: F401
-                                   RunStats, as_requests, sample)
+                                   RunStats, ServeAPI, as_requests, sample)
 from repro_torch.serve.engine import GenerateResult, ServeEngine  # noqa: F401
 from repro_torch.serve.paged_cache import (PagedKVCache,  # noqa: F401
                                            default_page_size, prefix_digests)

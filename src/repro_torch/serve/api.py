@@ -4,25 +4,31 @@
   generate, arrival tick, optional deadline and cancel tick;
 * :class:`RequestResult` — per-request outcome: generated tokens plus
   the scheduling record and terminal status;
-* :class:`RunStats` — the run-level accounting; indexable by name
-  (``stats["tokens"]``) like the reference's;
+* :class:`RunStats` — the run-level accounting; dict-compatible like
+  the reference's (``stats["tokens"]``, ``.get``, ``.keys``,
+  ``.as_dict``);
+* :class:`ServeAPI` — the shared protocol both engines meet:
+  ``run(trace, *, temperature=0.0, seed=0)`` returning
+  ``(List[RequestResult], RunStats)``;
+* :func:`as_requests` — a trace of :class:`Request` objects or, as the
+  reference still takes them, legacy ``(prompt, n_steps[, arrival])``
+  tuples, coerced with a one-shot ``DeprecationWarning``;
 * :func:`sample` — the engines' token choice: greedy, or temperature
   sampling from a ``torch.Generator``.
-
-The reference still coerces legacy ``(prompt, n_steps[, arrival])``
-tuples with a deprecation warning; the port takes :class:`Request`
-objects only.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence
+import warnings
+from typing import (Any, Dict, Iterator, List, Optional, Protocol, Sequence,
+                    Tuple, Union, runtime_checkable)
 
 import numpy as np
 import torch
 
-__all__ = ["Request", "RequestResult", "RunStats", "as_requests", "sample"]
+__all__ = ["Request", "RequestResult", "RunStats", "ServeAPI", "as_requests",
+           "sample"]
 
 
 @dataclasses.dataclass
@@ -84,15 +90,55 @@ class RunStats:
         except AttributeError:
             raise KeyError(key) from None
 
+    def get(self, key: str, default: Any = None) -> Any:
+        return getattr(self, key, default)
 
-def as_requests(trace: Sequence[Request]) -> List[Request]:
+    def keys(self) -> Iterator[str]:
+        return iter(f.name for f in dataclasses.fields(self))
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+@runtime_checkable
+class ServeAPI(Protocol):
+    """The shared serve protocol: replay a trace to completion."""
+
+    def run(self, requests: Sequence[Union[Request, Tuple]], *,
+            temperature: float = 0.0, seed: int = 0
+            ) -> Tuple[List[RequestResult], RunStats]:
+        ...
+
+
+_WARNED: set = set()
+
+
+def _warn_once(key: str, msg: str) -> None:
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(msg, DeprecationWarning, stacklevel=3)
+
+
+def as_requests(trace: Sequence[Union[Request, Tuple]]) -> List[Request]:
     """Validate a trace and normalise it in place: prompts flattened to
-    1-D int32, ticks and counts to ints."""
+    1-D int32, ticks and counts to ints.  A legacy ``(prompt, n_steps[,
+    arrival])`` tuple or list becomes a :class:`Request`; the first such
+    coercion in a process warns (``DeprecationWarning``), as the
+    reference's does."""
     reqs: List[Request] = []
     for i, r in enumerate(trace):
         if not isinstance(r, Request):
-            raise TypeError(f"request {i}: expected a repro_torch.serve."
-                            f"Request, got {type(r).__name__}")
+            if not isinstance(r, (tuple, list)) or not 2 <= len(r) <= 3:
+                raise TypeError(
+                    f"request {i}: expected a repro_torch.serve.Request or "
+                    f"a legacy (prompt, n_steps[, arrival]) tuple, got "
+                    f"{type(r).__name__}")
+            _warn_once(
+                "tuple-trace",
+                "passing (prompt, n_steps[, arrival]) tuples to run() is "
+                "deprecated; build repro_torch.serve.Request objects (e.g. "
+                "via the repro_torch.serve.traces generators) instead")
+            r = Request(*r)
         r.prompt = np.asarray(r.prompt, np.int32).reshape(-1)
         r.n_steps = int(r.n_steps)
         r.arrival = int(r.arrival)

@@ -527,6 +527,15 @@ class PagedServeEngine:
         )
         return [r for r in results if r is not None], stats
 
+    def generate(self, tokens: np.ndarray, *, n_steps: int = 32,
+                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+        """Batch convenience mirroring ``ServeEngine.generate``: serve the
+        (B, S) prompts (all arriving at tick 0) and return (B, n_steps)."""
+        tokens = np.asarray(tokens, np.int32)
+        reqs = [Request(prompt=row, n_steps=n_steps) for row in tokens]
+        results, _ = self.run(reqs, temperature=temperature, seed=seed)
+        return np.stack([r.tokens for r in results])
+
     def _assert_refcount_exact(self, slots, seized) -> None:
         """Every reference the pool counts must be owned by exactly one
         holder the scheduler knows: a slot's blocks or a fault seizure."""

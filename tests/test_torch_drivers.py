@@ -111,7 +111,7 @@ def test_serve_resilience_acts_and_act3_near_tie_rule():
     for field in ("naive:", "graceful:", "chaos:", "ticks=", "preemptions=",
                   "stalled_ticks="):
         assert field in out
-    assert "near-tie rule (first difference below margin 0.05): held" in out
+    assert "float32-arbitrated near-tie rule: held" in out
     assert "pool fully reclaimed: True" in out
 
 

@@ -370,8 +370,9 @@ def test_replica_equals_reference_replica(seed):
 
 
 def test_replica_validation_and_tuples():
-    """The reference's two fit checks with its messages; a tuple raises
-    the port's TypeError (the reference coerces it with a warning)."""
+    """The reference's two fit checks with its messages; a legacy tuple
+    trace is coerced as the reference coerces it, to the same
+    statistics, with a DeprecationWarning the first time."""
     for max_len, page, n_blocks in ((64, 64, None), (192, 128, 2)):
         errs = []
         for cap, api in ((capacity, port_api), (ref_capacity, ref_api)):
@@ -381,9 +382,15 @@ def test_replica_validation_and_tuples():
                                    page=page, n_blocks=n_blocks)
             errs.append(str(e.value))
         assert errs[0] == errs[1]
+    kw = dict(max_len=64, max_batch=2, page=64)
+    trace = [(np.zeros(8, np.int32), 4), (np.ones(6, np.int32), 3, 1)]
+    want = ref_capacity.simulate_trace(list(trace), **kw)
+    port_api._WARNED.clear()
+    with pytest.warns(DeprecationWarning, match="tuples"):
+        got = capacity.simulate_trace(list(trace), **kw)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
     with pytest.raises(TypeError, match="Request"):
-        capacity.simulate_trace([(np.zeros(8, np.int32), 4)], max_len=64,
-                                max_batch=2, page=64)
+        capacity.simulate_trace([np.zeros(8, np.int32)], **kw)
 
 
 def test_replica_models_block_backpressure():

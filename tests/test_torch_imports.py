@@ -419,6 +419,19 @@ def test_example_and_script_twins_import_clean():
     assert got == {"leaked": [], "mains": {d: True for d in TWINS}}
 
 
+def test_near_tie_calibration_script_imports_clean():
+    """``scripts/torch_near_tie_calibration.py`` (the near-tie rule's
+    calibration, run on the CPU and on the card) loads neither jax nor
+    the reference."""
+    script = "scripts/torch_near_tie_calibration.py"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _TWIN_PROBE, str(ROOT),
+                          script], capture_output=True, text=True, env=env,
+                         timeout=120, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"leaked": [], "mains": {script: True}}
+
+
 @pytest.mark.parametrize("example", TWINS[:3])
 def test_example_twins_default_to_cuda(monkeypatch, example):
     spec = importlib.util.spec_from_file_location(
