@@ -9,19 +9,25 @@ makes the fault-tolerant controller's replay after a restart exact.
 
 ``prefetch_to_device`` overlaps host generation with device compute: a
 background thread fills a bounded queue with batches already moved to
-the device (pinned and copied without blocking on a CUDA target).
+the device (pinned and copied without blocking on a CUDA target) and,
+given ``sharding``, laid out on a device mesh as DTensors, as the
+reference places each batch with its ``NamedSharding``.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, Union
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.api import place
+
+# (mesh, placements): one layout for every leaf
+Layout = Tuple[object, Sequence]
 
 __all__ = ["SyntheticLM", "prefetch_to_device"]
 
@@ -65,14 +71,24 @@ class SyntheticLM:
             step += 1
 
 
-def prefetch_to_device(it: Iterator, *, size: int = 2,
-                       device: Union[str, torch.device, None] = "cuda"
-                       ) -> Iterator[Dict[str, torch.Tensor]]:
+def prefetch_to_device(
+        it: Iterator, *, size: int = 2,
+        device: Union[str, torch.device, None] = "cuda",
+        sharding: Union[None, Layout,
+                        Callable[[str, torch.Tensor], Optional[Layout]]]
+        = None) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield ``it``'s batches (dicts of numpy arrays) as tensors on
     ``device``, prepared by a background thread at most ``size`` batches
     ahead; the thread starts at once.  On a CUDA device each host array
     is pinned and copied with ``non_blocking=True``.  An exception in
-    ``it`` is raised by the iterator, after the batches before it."""
+    ``it`` is raised by the iterator, after the batches before it.
+
+    ``sharding`` lays each leaf out on a mesh as a DTensor with
+    :func:`repro_torch.parallel.api.place`: a ``(mesh, placements)``
+    pair for every leaf, or a rule ``rule(name, tensor)`` giving each
+    leaf's pair (None leaves that one a plain tensor).  Every rank draws
+    the same full batch and keeps its own block, with no communication;
+    ``device`` must be the mesh's (the rank's card on a CUDA mesh)."""
     dev = resolve_device(device)
     q: "queue.Queue" = queue.Queue(maxsize=size)
     end = object()
@@ -83,7 +99,8 @@ def prefetch_to_device(it: Iterator, *, size: int = 2,
             t = torch.from_numpy(np.ascontiguousarray(v))
             if dev.type == "cuda":
                 t = t.pin_memory().to(dev, non_blocking=True)
-            out[k] = t
+            layout = sharding(k, t) if callable(sharding) else sharding
+            out[k] = t if layout is None else place(t, *layout)
         return out
 
     def worker():

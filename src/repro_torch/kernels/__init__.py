@@ -13,7 +13,9 @@ cycle-counter reads, whose stamps Eq. 1 reads
 
 The four kernels with a logical-axis contract run sharded on a mesh
 when an operand is a DTensor (:mod:`repro_torch.kernels.sharded`),
-counted in :func:`sharded_launch_counts`.
+counted in :func:`sharded_launch_counts`.  The tile planner's names
+(``plan_for``, ``TilePlan``, the kernel catalog) are re-exported from
+:mod:`repro_torch.kernels.plan`, as the reference's package does.
 """
 
 from typing import Dict
@@ -31,6 +33,9 @@ from repro_torch.kernels.mfma_gemm import (  # noqa: F401
     LAUNCHES as _MFMA_GEMM_LAUNCHES, mfma_gemm, mfma_gemm_plain)
 from repro_torch.kernels.moe_gmm import (  # noqa: F401
     LAUNCHES as _MOE_GMM_LAUNCHES, moe_gmm, moe_gmm_plain)
+from repro_torch.kernels.plan import (  # noqa: F401
+    KernelEntry, TilePlan, UnknownKernelError, get_kernel, list_kernels,
+    plan_for, register_kernel)
 from repro_torch.kernels.sharded import SHARDED_LAUNCHES as _SHARDED
 
 __all__ = ["flash_attention", "flash_attention_plain", "decode_attention",
@@ -38,7 +43,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "decode_attention",
            "paged_decode_attention_plain", "moe_gmm", "moe_gmm_plain",
            "mamba2_ssd", "mamba2_ssd_plain", "mfma_gemm", "mfma_gemm_plain",
            "listing1", "listing1_plain", "launch_counts", "reset_launch_counts",
-           "sharded_launch_counts"]
+           "sharded_launch_counts", "KernelEntry", "TilePlan",
+           "UnknownKernelError", "get_kernel", "list_kernels", "plan_for",
+           "register_kernel"]
 
 _COUNTERS = (_FLASH_LAUNCHES, _DECODE_LAUNCHES, _MOE_GMM_LAUNCHES,
              _SSD_LAUNCHES, _MFMA_GEMM_LAUNCHES, _LISTING1_LAUNCHES)

@@ -14,8 +14,8 @@ down projections over the expert slot buffers).
   through a cp.async ring, in blocks of 16, 32, 64 or 128 slot rows,
   the smallest that covers C; f32 operands and the other 16-bit ones run
   on CUDA cores.  The kernel chooses by dtype, alignment and shape.
-* On a CPU tensor it runs :func:`moe_gmm_plain`: the products in f32,
-  rounded once to x's dtype.  The CPU tests hold it against the
+* On a CPU tensor it runs :func:`moe_gmm_plain`: the products summed
+  in f32, rounded once to x's dtype.  The CPU tests hold it against the
   reference's Pallas kernel in interpret mode, and ``chip_smoke.py``
   holds the CUDA kernel against it on the card.
 
@@ -56,8 +56,19 @@ _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch ops: f32 products and sums,
-    one rounding to x's dtype at the end."""
+    """The kernel's arithmetic in PyTorch ops: f32 sums of the exact
+    products, one rounding to x's dtype at the end.
+
+    16-bit operands on the CPU run PyTorch's 16-bit ``bmm``, which
+    accumulates in f32 and rounds once, as the kernel does, and which
+    sums in the order of XLA's CPU dot that the reference's Pallas body
+    runs in interpret mode: the two agree bit for bit while K is one
+    slice of the reference's plan (``tests/test_torch_mla_bf16.py``),
+    where an f32 ``bmm`` of the upcast operands sums in another order.
+    Elsewhere the products are upcast to f32 (on a CUDA device a 16-bit
+    ``bmm`` may reduce in 16 bits)."""
+    if x.device.type == "cpu" and x.dtype != torch.float32:
+        return torch.bmm(x, w)
     return torch.bmm(x.float(), w.float()).to(x.dtype)
 
 

@@ -51,8 +51,8 @@ import torch
 from repro_torch.kernels import (decode_attention, flash_attention,
                                  paged_decode_attention)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (cdtype, dense, mm, model_axis,
-                                       norm_apply, rope)
+from repro_torch.models.layers import (DTYPES, cdtype, dense, mm,
+                                       model_axis, norm_apply, rope)
 from repro_torch.parallel.api import (current_mesh, is_dtensor,
                                       named_sharding, shard, write_rows)
 
@@ -354,12 +354,22 @@ def attn_train(cfg: ModelConfig, w, x: torch.Tensor,
     return dense(_merge_heads(out), w["wo"])
 
 
-def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                    device: Union[str, torch.device]) -> Dict:
-    """Zeroed (batch, max_len, KV, hd) K and V caches in ``cfg.dtype``."""
+def _cache_dtype(cfg: ModelConfig, dtype) -> torch.dtype:
+    """``dtype`` (a ``torch.dtype`` or its name), or ``cfg.dtype`` when
+    None."""
+    if dtype is None:
+        return cdtype(cfg)
+    return DTYPES[dtype] if isinstance(dtype, str) else dtype
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                    *, device: Union[str, torch.device]) -> Dict:
+    """Zeroed (batch, max_len, KV, hd) K and V caches in ``dtype`` (a
+    ``torch.dtype`` or its name; ``cfg.dtype`` when None)."""
     shp = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shp, dtype=cdtype(cfg), device=device),
-            "v": torch.zeros(shp, dtype=cdtype(cfg), device=device)}
+    dt = _cache_dtype(cfg, dtype)
+    return {"k": torch.zeros(shp, dtype=dt, device=device),
+            "v": torch.zeros(shp, dtype=dt, device=device)}
 
 
 def attn_decode(cfg: ModelConfig, w, x: torch.Tensor, cache: Dict,
@@ -544,15 +554,17 @@ def mla_train(cfg: ModelConfig, w, x: torch.Tensor,
     return _mla_attend(cfg, w, x, c_kv, k_rope, positions, causal=True)
 
 
-def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-                   device: Union[str, torch.device]) -> Dict:
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+                   *, device: Union[str, torch.device]) -> Dict:
     """Zeroed latent (batch, max_len, kv_lora_rank) and RoPE-key
-    (batch, max_len, qk_rope_dim) caches in ``cfg.dtype``."""
+    (batch, max_len, qk_rope_dim) caches in ``dtype`` (as in
+    :func:`init_attn_cache`)."""
     m = cfg.mla
-    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
-                               dtype=cdtype(cfg), device=device),
-            "krope": torch.zeros((batch, max_len, m.qk_rope_dim),
-                                 dtype=cdtype(cfg), device=device)}
+    dt = _cache_dtype(cfg, dtype)
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt,
+                               device=device),
+            "krope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dt,
+                                 device=device)}
 
 
 def mla_decode(cfg: ModelConfig, w, x: torch.Tensor, cache: Dict,

@@ -46,6 +46,19 @@ def close(port, ref, rtol):
                                atol=rtol * max(1.0, np.abs(ref).max()))
 
 
+def xla_cpu_silu(silu):
+    """``silu`` as XLA:CPU evaluates ``jax.nn.silu`` on bf16: x *
+    logistic(x) with exp(-x), 1 + e, 1 / (1 + e) and the product each
+    rounded to bf16 (``torch.nn.functional.silu`` rounds once from f32);
+    other types unchanged.  Tests patch it in to show the rest of a bf16
+    comparison without that rounding point."""
+    def emulated(x):
+        if x.dtype != torch.bfloat16:
+            return silu(x)
+        return x * (1 / (1 + torch.exp(-x)))    # each op rounds to bf16
+    return emulated
+
+
 def nonzero_gates(np_params, seed):
     """Every cross slot's (n_periods,) gate stack drawn from ``seed``."""
     rng = np.random.default_rng(seed)

@@ -170,6 +170,32 @@ def sharded(rank, world, tmp):
         "plain": {"params": p1, "opt": o1, "metrics": m1},
         "sharded": {"params": full(p2), "opt": full(o2),
                     "metrics": full(m2)}}
+    out["prefetch"] = _prefetched(inp["prefetch"], mesh)
+    return out
+
+
+def _prefetched(inp, mesh):
+    """``prefetch_to_device(sharding=...)`` over ``inp["batches"]``, laid
+    out by a per-leaf rule (``inp["specs"]``: name -> PartitionSpec
+    entries, None for a plain leaf) and by one (mesh, placements) pair:
+    each leaf's local block and placements (None for a plain tensor)."""
+    from repro_torch.data import prefetch_to_device
+    from repro_torch.parallel.api import (PartitionSpec, is_dtensor,
+                                          to_placements)
+
+    def layout(spec):
+        return mesh, to_placements(PartitionSpec(*spec), mesh)
+
+    def rule(name, t):
+        spec = inp["specs"][name]
+        return None if spec is None else layout(spec)
+    out = {}
+    for tag, sharding in (("rule", rule), ("pair", layout(inp["pair"]))):
+        out[tag] = [
+            {k: (v.to_local().clone(), [str(p) for p in v.placements])
+             if is_dtensor(v) else (v, None) for k, v in b.items()}
+            for b in prefetch_to_device(iter(inp["batches"]), size=1,
+                                        device="cpu", sharding=sharding)]
     return out
 
 

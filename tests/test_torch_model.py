@@ -45,6 +45,8 @@ from repro_torch.convert import convert_cache, convert_params
 from repro_torch.models import (decode_step, forward, paged_decode_step,
                                 paged_prefill_step, prefill)
 
+from _torch_catalog import xla_cpu_silu
+
 JCFG = dataclasses.replace(jax_get_config("qwen2-7b").reduced(),
                            dtype="float32")
 CFG = dataclasses.replace(get_config("qwen2-7b").reduced(), dtype="float32")
@@ -542,14 +544,6 @@ def test_ssm_prefill_and_decode_step_match_reference(name, dtype, kernels,
 # is those few flips and f32 sums in other orders, amplified by random
 # weights and MoE routing near-ties.
 
-def _xla_cpu_silu(silu):
-    def emulated(x):
-        if x.dtype != torch.bfloat16:
-            return silu(x)
-        return x * (1 / (1 + torch.exp(-x)))    # each op rounds to bf16
-    return emulated
-
-
 def _beyond_one_ulp(port, ref) -> float:
     """Fraction of bf16 outputs more than one bf16 ulp apart."""
     a, b = port.float().numpy(), np.asarray(ref, np.float32)
@@ -587,7 +581,7 @@ def test_jamba_bf16_layers_match_reference_but_for_silu(kernels,
         own = _beyond_one_ulp(apply_layer(cfg, sig, w, x, mode="train",
                                           positions=pos)[0], want)
         monkeypatch.setattr(torch.nn.functional, "silu",
-                            _xla_cpu_silu(silu))
+                            xla_cpu_silu(silu))
         emulated = _beyond_one_ulp(apply_layer(cfg, sig, w, x,
                                                mode="train",
                                                positions=pos)[0], want)

@@ -11,7 +11,10 @@ One group of ranks (``tests/_torch_dist.py``, scenario ``sharded``) runs:
   which must raise a ``ValueError`` naming the missing contract;
 * reduced qwen2-7b (the reference's weights, converted) placed by
   ``param_axes_rule``: ``forward``, ``prefill`` and ``decode_step`` on both
-  paths, and one train step.
+  paths, and one train step;
+* ``prefetch_to_device(sharding=...)``: each rank's block of every
+  prefetched leaf against the block the reference's ``NamedSharding``
+  gives its device.
 
 Each sharded result is held to the port's unsharded run (the same code
 on one rank: float32 atol 1e-5, the summation order of a split sum) and
@@ -126,6 +129,20 @@ def _kernel_cases():
 CASES = _kernel_cases()
 
 
+# prefetch_to_device(sharding=...): two batches of three leaves, laid out
+# by a per-leaf rule (PartitionSpec entries; None: a plain tensor) and by
+# one (mesh, placements) pair for every leaf
+_B = _rng(21)
+PREFETCH = {
+    "batches": [{"tokens": _B.integers(0, 500, (8, 6)).astype(np.int32),
+                 "labels": _B.integers(0, 500, (8, 6)).astype(np.int32),
+                 "mask": _B.random((8, 6)).astype(np.float32)}
+                for _ in range(2)],
+    "specs": {"tokens": ("data", None), "labels": (("data", "model"), None),
+              "mask": None},
+    "pair": (None, "model")}
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
@@ -147,7 +164,8 @@ def ranks(tmp_path_factory):
         "pos": POS,
         "batch": {"tokens": torch.from_numpy(tok).long(),
                   "labels": torch.from_numpy(lab).long()},
-        "opt": OPT}, tmp / "in.pt")
+        "opt": OPT, "prefetch": PREFETCH},
+        tmp / "in.pt")
     return launch("sharded", 4, tmp), jparams, tok, lab
 
 
@@ -260,3 +278,47 @@ def test_sharded_train_step_matches_unsharded_and_reference(ranks):
                 _close(got[key], base[key], atol=1e-5 * scale, rtol=1e-4)
                 _close(got[key], want_opt[k][key], atol=1e-5 * scale,
                        rtol=1e-4)
+
+
+def test_prefetch_places_each_rank_s_block_as_the_reference(ranks):
+    """Every rank's local block of each prefetched leaf is the block the
+    reference's ``NamedSharding`` gives that device on a (2, 2) mesh of
+    the same axis names (device i is rank i, both row-major), for a
+    per-leaf rule and for one layout of every leaf; a leaf the rule
+    leaves out stays a plain tensor.  The reference's own
+    ``prefetch_to_device(sharding=...)``, on its one device, yields the
+    same batches in order."""
+    from jax._src.op_shardings import op_sharding_to_indices
+    from jax.sharding import (AbstractMesh, Mesh, NamedSharding,
+                              PartitionSpec as JP)
+    from repro.data.pipeline import prefetch_to_device as jax_prefetch
+    outs, *_ = ranks
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+
+    def blocks(spec, shape):
+        hlo = NamedSharding(mesh, JP(*spec))._to_xla_hlo_sharding(len(shape))
+        return op_sharding_to_indices(hlo, shape, 4)
+    batches = PREFETCH["batches"]
+    for tag in ("rule", "pair"):
+        for rank, out in enumerate(outs):
+            got = out["prefetch"][tag]
+            assert len(got) == len(batches)
+            for b, want in zip(got, batches):
+                assert set(b) == set(want)
+                for name, (local, placements) in b.items():
+                    spec = PREFETCH["pair"] if tag == "pair" \
+                        else PREFETCH["specs"][name]
+                    if spec is None:
+                        assert placements is None
+                        np.testing.assert_array_equal(local.numpy(),
+                                                      want[name])
+                        continue
+                    assert placements is not None
+                    block = want[name][blocks(spec, want[name].shape)[rank]]
+                    np.testing.assert_array_equal(local.numpy(), block)
+    one = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    seen = list(jax_prefetch(iter(batches), size=1, sharding=NamedSharding(
+        one, JP("data", None))))
+    for b, want in zip(seen, batches, strict=True):
+        for name in want:
+            np.testing.assert_array_equal(np.asarray(b[name]), want[name])
