@@ -28,6 +28,10 @@ run one block of groups a rank under ``local_map``
 (:func:`_slot_maps`), and the expert products fold the groups into each
 expert's rows through a contiguous copy (:class:`_Relayout`); without a
 mesh neither touches DTensor.
+
+While :mod:`repro_torch.trace` records, each call leaves a
+``moe.dispatch`` record (E, B, C) holding the slot occupancy mask it
+computes anyway; read, it is the kept assignments per expert.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.kernels import moe_gmm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import cdtype, dense, mm
@@ -215,6 +220,11 @@ class _Relayout(torch.autograd.Function):
         return _Relayout._apply(g, not ctx.fold, ctx.B), None, None
 
 
+def _kept_per_expert(used: torch.Tensor) -> torch.Tensor:
+    """(B, E, C) slot occupancy -> (E,) kept assignments per expert."""
+    return used.sum(dim=(0, 2))
+
+
 def moe_apply(cfg: ModelConfig, w, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss).  Groups = batch rows."""
@@ -227,6 +237,10 @@ def moe_apply(cfg: ModelConfig, w, x: torch.Tensor
 
     idx_flat = idx.reshape(B, S * K)                   # assignment order: (t, k)
     pos, keep, src, used = _slot_maps(cfg, idx_flat, C)
+    rec = trace.count("moe.dispatch")
+    if rec:
+        rec.attrs.update(E=E, B=B, C=C)
+        rec.hold(used.view(B, E, C), _kept_per_expert)
 
     # token index of each assignment; gather tokens into expert slot buffers
     tok_of_src = src // K                                             # (B, E*C)

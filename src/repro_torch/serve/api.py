@@ -47,6 +47,13 @@ class Request:
 
 @dataclasses.dataclass
 class RequestResult:
+    """One request's outcome.  Times are ``time.perf_counter()``:
+    ``arrival_time`` is the start of the tick at which the request became
+    eligible (its ``arrival``; the sync engine, which has no ticks, leaves
+    it 0.0), ``admit_time`` its admission, ``emit_times`` each token's.
+    TTFT from arrival is ``emit_times[0] - arrival_time``; the wait
+    before admission is ``admit_time - arrival_time``."""
+
     tokens: np.ndarray              # (n_steps,) generated tokens
     prompt_len: int
     arrival: int                    # tick the request became eligible
@@ -58,6 +65,7 @@ class RequestResult:
     status: str = "OK"              # terminal state (serve.resilience)
     detail: str = ""                # human-readable reason for non-OK ends
     preemptions: int = 0            # times this request was evicted/requeued
+    arrival_time: float = 0.0       # perf_counter() at its arrival tick
 
 
 @dataclasses.dataclass

@@ -27,6 +27,14 @@ computes the greedy tokens on the device and moves one (B,) int tensor
 to the host, which also waits for the tick's work.  Temperature sampling
 draws from one ``torch.Generator`` seeded with ``seed`` on the engine's
 device; only greedy decoding is held to the reference.
+
+Each tick stamps its start on the host clock (a request's
+``arrival_time`` is that of its arrival tick) and runs inside the span
+``engine.tick`` of :mod:`repro_torch.trace`: ``engine.prefill`` around
+each chunk, ``engine.first_token`` around the host's wait for a
+finished prompt's token, ``engine.decode`` around the decode step and
+``engine.decode_wait`` around the wait for its tokens.  They record
+only while the recorder is on and change no decision of the scheduler.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import paged_decode_step, paged_prefill_step
@@ -206,10 +215,12 @@ class PagedServeEngine:
         emit_times: List[List[float]] = [[] for _ in reqs]
         admitted_at = [-1] * len(reqs)
         admit_time = [0.0] * len(reqs)
+        arrival_time = [0.0] * len(reqs)
         prefix_blocks = [0] * len(reqs)
         preempt_count = [0] * len(reqs)
-        queue = collections.deque(
-            sorted(range(len(reqs)), key=lambda i: (reqs[i].arrival, i)))
+        order = sorted(range(len(reqs)), key=lambda i: (reqs[i].arrival, i))
+        n_arrived = 0                   # requests of ``order`` eligible
+        queue = collections.deque(order)
 
         B, NB = self.max_batch, self.nb_table
         slots: List[Optional[_Slot]] = [None] * B
@@ -239,7 +250,8 @@ class PagedServeEngine:
                 finished=tick, emit_times=emit_times[rid],
                 admit_time=admit_time[rid],
                 prefix_blocks=prefix_blocks[rid], status=status,
-                detail=detail, preemptions=preempt_count[rid])
+                detail=detail, preemptions=preempt_count[rid],
+                arrival_time=arrival_time[rid])
 
         def clear_slot(si: int) -> None:
             self.cache.free(slots[si].ids)
@@ -303,202 +315,226 @@ class PagedServeEngine:
                     f"{sum(s is not None for s in slots)} in-flight "
                     "requests — deadlock canary tripped")
 
-            # 1. faults
-            stalled = False
-            if fault_plan is not None:
-                keep = []
-                for release, ids in seized:
-                    if release <= tick:
-                        self.cache.free(ids)
-                    else:
-                        keep.append((release, ids))
-                seized = keep
-                for f in fault_plan.seizures(tick):
-                    k = self.cache.free_blocks if f.n is None \
-                        else min(f.n, self.cache.free_blocks)
-                    ids = self.cache.alloc(k) or []
-                    if ids:
-                        seized.append((tick + f.duration, ids))
-                stalled = fault_plan.stalled(tick)
-                if stalled:
-                    n_stalled += 1
+            # the tick's start: stamps the requests it makes eligible
+            now = time.perf_counter()
+            while n_arrived < len(order) and \
+                    reqs[order[n_arrived]].arrival <= tick:
+                arrival_time[order[n_arrived]] = now
+                n_arrived += 1
 
-            # 2. cancellations, then timeouts
-            cancelled = [rid for rid in queue
-                         if reqs[rid].cancel_at is not None
-                         and tick >= reqs[rid].cancel_at]
-            drop_queued(cancelled, CANCELLED,
-                        lambda rid: f"cancelled at tick "
-                                    f"{reqs[rid].cancel_at} while queued")
-            n_cancel += len(cancelled)
-            for si in range(B):
-                slot = slots[si]
-                if slot is None:
-                    continue
-                r = reqs[slot.req]
-                if r.cancel_at is not None and tick >= r.cancel_at:
-                    retire(si, CANCELLED,
-                           f"cancelled at tick {r.cancel_at} in flight")
-                    n_cancel += 1
-            timed_out = [rid for rid in queue
-                         if reqs[rid].deadline is not None
-                         and tick > reqs[rid].deadline]
-            drop_queued(timed_out, TIMEOUT,
-                        lambda rid: f"deadline {reqs[rid].deadline} passed "
-                                    "while queued")
-            n_timeout += len(timed_out)
-            for si in range(B):
-                slot = slots[si]
-                if slot is None:
-                    continue
-                r = reqs[slot.req]
-                if r.deadline is not None and tick > r.deadline:
-                    retire(si, TIMEOUT,
-                           f"deadline {r.deadline} passed with "
-                           f"{slot.remaining} tokens still to emit")
-                    n_timeout += 1
+            with trace.span("engine.tick") as tick_span:
+                if tick_span:
+                    tick_span.attrs["tick"] = tick
+                # 1. faults
+                stalled = False
+                if fault_plan is not None:
+                    keep = []
+                    for release, ids in seized:
+                        if release <= tick:
+                            self.cache.free(ids)
+                        else:
+                            keep.append((release, ids))
+                    seized = keep
+                    for f in fault_plan.seizures(tick):
+                        k = self.cache.free_blocks if f.n is None \
+                            else min(f.n, self.cache.free_blocks)
+                        ids = self.cache.alloc(k) or []
+                        if ids:
+                            seized.append((tick + f.duration, ids))
+                    stalled = fault_plan.stalled(tick)
+                    if stalled:
+                        n_stalled += 1
 
-            # 3. fault-forced preemptions
-            if fault_plan is not None:
-                for si in victims_latest_first()[
-                        :fault_plan.forced_preemptions(tick)]:
-                    preempt(si, "forced by fault plan")
-
-            # 4. shed: queue-cap bound first, then the pluggable policy
-            for policy in self.policies:
-                waiting = [rid for rid in queue if reqs[rid].arrival <= tick]
-                if not waiting:
-                    break
-                entries = queue_entries(tick, waiting, reqs,
-                                        self.prefill_chunk)
-                verdicts = dict(policy.shed(tick, entries))
-                drop_queued(list(verdicts), SHED, verdicts.__getitem__)
-                n_shed += len(verdicts)
-
-            # 5. admit: FIFO while a slot and the prompt reservation fit
-            while not stalled and queue and reqs[queue[0]].arrival <= tick:
-                free_slots = [i for i, s in enumerate(slots) if s is None]
-                if not free_slots:
-                    break
-                rid = queue[0]
-                r = reqs[rid]
-                s = r.prompt.shape[0]
-                need = self._prompt_blocks(s)
-                matched: List[int] = []
-                if self.prefix_cache:
-                    # >= 1 suffix token must prefill (first-token logits),
-                    # which also keeps later writes past the shared pages
-                    matched = self.cache.match_prefix(
-                        r.prompt)[:(s - 1) // self.page]
-                    self.cache.acquire(matched)
-                ids = self.cache.alloc(need - len(matched))
-                if ids is None:
-                    if matched:
-                        self.cache.free(matched)
-                    break
-                queue.popleft()
-                si = free_slots[0]
-                admitted_at[rid] = tick
-                admit_time[rid] = time.perf_counter()
-                prefix_blocks[rid] = len(matched)
-                blocks_reused += len(matched)
-                blocks_needed += (s - 1) // self.page
-                slots[si] = _Slot(req=rid, ids=matched + ids,
-                                  remaining=r.n_steps,
-                                  filled=len(matched) * self.page,
-                                  registered=len(matched), seq=seq_counter)
-                seq_counter += 1
-                tables[si, :] = 0
-                tables[si, :len(slots[si].ids)] = slots[si].ids
-                lens[si] = 0                        # ACTIVE only after prefill
-
-            occupancy.append(self.cache.occupancy())
-
-            # 6. prefill: one chunk per PREFILLING slot
-            C = self.prefill_chunk
-            for si in range(B):
-                slot = slots[si]
-                if stalled or slot is None or lens[si] > 0:
-                    continue
-                r = reqs[slot.req]
-                s = r.prompt.shape[0]
-                pos = slot.filled
-                nv = min(C, s - pos)
-                toks = np.zeros((1, C), np.int32)
-                toks[0, :nv] = r.prompt[pos:pos + nv]
-                logits = self.prefill(toks, tables[si:si + 1], pos, nv)
-                prefill_chunks += 1
-                slot.filled = pos + nv
-                if self.prefix_cache:
-                    full = slot.filled // self.page
-                    if full > slot.registered:
-                        self.cache.register_prefix(
-                            r.prompt[:full * self.page], slot.ids[:full])
-                        slot.registered = full
-                if slot.filled == s:                # prefill done -> ACTIVE
-                    tok = int(sample(logits, temperature, gen))
-                    lens[si] = s
-                    pend[si] = tok
-                    emit(slot.req, tok)
-                    slot.remaining -= 1
-                    if slot.remaining == 0:
-                        retire(si)
-
-            # 7a. grow: a slot writing into a fresh page allocates its
-            # next block; exhaustion preempts latest-admitted first
-            for si in range(B):
-                if stalled:
-                    break
-                slot = slots[si]
-                if slot is None or lens[si] == 0:
-                    continue
-                if int(lens[si]) < len(slot.ids) * self.page:
-                    continue                        # page not full yet
-                got = self.cache.alloc(1)
-                if got is None:
-                    for vi in victims_latest_first():
-                        victim_is_self = vi == si
-                        preempt(vi, "pool exhausted growing slot "
-                                    f"{si} at length {int(lens[si])}")
-                        if victim_is_self:
-                            break
-                        got = self.cache.alloc(1)
-                        if got is not None:
-                            break
-                if got is None or slots[si] is None:
-                    continue                        # grower was evicted
-                slot.ids.append(got[0])
-                tables[si, len(slot.ids) - 1] = got[0]
-
-            # 7b. decode every ACTIVE slot.  PREFILLING slots sit at lens
-            # 0 with a null table row, so they attend one masked null row
-            # and their write lands in the null block, like idle slots.
-            active = [] if stalled else \
-                [i for i, sl in enumerate(slots)
-                 if sl is not None and lens[i] > 0]
-            if active:
-                dec_tables = tables.copy()
+                # 2. cancellations, then timeouts
+                cancelled = [rid for rid in queue
+                             if reqs[rid].cancel_at is not None
+                             and tick >= reqs[rid].cancel_at]
+                drop_queued(cancelled, CANCELLED,
+                            lambda rid: f"cancelled at tick "
+                                        f"{reqs[rid].cancel_at} while queued")
+                n_cancel += len(cancelled)
                 for si in range(B):
-                    if slots[si] is not None and lens[si] == 0:
-                        dec_tables[si] = 0
-                logits = self.decode(pend, dec_tables, lens)
-                # the tick's one device-to-host transfer (it also waits
-                # for the tick's pool writes)
-                toks = sample(logits, temperature, gen).cpu().numpy()
-                decode_steps += 1
-                lens[active] += 1
-                for si in active:
                     slot = slots[si]
-                    tok = int(toks[si])
-                    pend[si] = tok
-                    emit(slot.req, tok)
-                    slot.remaining -= 1
-                    if slot.remaining == 0:
-                        retire(si)
-            tick += 1
-            if checking:
-                self.cache.check_invariants()
-                self._assert_refcount_exact(slots, seized)
+                    if slot is None:
+                        continue
+                    r = reqs[slot.req]
+                    if r.cancel_at is not None and tick >= r.cancel_at:
+                        retire(si, CANCELLED,
+                               f"cancelled at tick {r.cancel_at} in flight")
+                        n_cancel += 1
+                timed_out = [rid for rid in queue
+                             if reqs[rid].deadline is not None
+                             and tick > reqs[rid].deadline]
+                drop_queued(timed_out, TIMEOUT,
+                            lambda rid: f"deadline {reqs[rid].deadline} passed "
+                                        "while queued")
+                n_timeout += len(timed_out)
+                for si in range(B):
+                    slot = slots[si]
+                    if slot is None:
+                        continue
+                    r = reqs[slot.req]
+                    if r.deadline is not None and tick > r.deadline:
+                        retire(si, TIMEOUT,
+                               f"deadline {r.deadline} passed with "
+                               f"{slot.remaining} tokens still to emit")
+                        n_timeout += 1
+
+                # 3. fault-forced preemptions
+                if fault_plan is not None:
+                    for si in victims_latest_first()[
+                            :fault_plan.forced_preemptions(tick)]:
+                        preempt(si, "forced by fault plan")
+
+                # 4. shed: queue-cap bound first, then the pluggable policy
+                for policy in self.policies:
+                    waiting = [rid for rid in queue if reqs[rid].arrival <= tick]
+                    if not waiting:
+                        break
+                    entries = queue_entries(tick, waiting, reqs,
+                                            self.prefill_chunk)
+                    verdicts = dict(policy.shed(tick, entries))
+                    drop_queued(list(verdicts), SHED, verdicts.__getitem__)
+                    n_shed += len(verdicts)
+
+                # 5. admit: FIFO while a slot and the prompt reservation fit
+                while not stalled and queue and reqs[queue[0]].arrival <= tick:
+                    free_slots = [i for i, s in enumerate(slots) if s is None]
+                    if not free_slots:
+                        break
+                    rid = queue[0]
+                    r = reqs[rid]
+                    s = r.prompt.shape[0]
+                    need = self._prompt_blocks(s)
+                    matched: List[int] = []
+                    if self.prefix_cache:
+                        # >= 1 suffix token must prefill (first-token logits),
+                        # which also keeps later writes past the shared pages
+                        matched = self.cache.match_prefix(
+                            r.prompt)[:(s - 1) // self.page]
+                        self.cache.acquire(matched)
+                    ids = self.cache.alloc(need - len(matched))
+                    if ids is None:
+                        if matched:
+                            self.cache.free(matched)
+                        break
+                    queue.popleft()
+                    si = free_slots[0]
+                    admitted_at[rid] = tick
+                    admit_time[rid] = time.perf_counter()
+                    prefix_blocks[rid] = len(matched)
+                    blocks_reused += len(matched)
+                    blocks_needed += (s - 1) // self.page
+                    slots[si] = _Slot(req=rid, ids=matched + ids,
+                                      remaining=r.n_steps,
+                                      filled=len(matched) * self.page,
+                                      registered=len(matched), seq=seq_counter)
+                    seq_counter += 1
+                    tables[si, :] = 0
+                    tables[si, :len(slots[si].ids)] = slots[si].ids
+                    lens[si] = 0                        # ACTIVE only after prefill
+
+                occupancy.append(self.cache.occupancy())
+
+                # 6. prefill: one chunk per PREFILLING slot
+                C = self.prefill_chunk
+                for si in range(B):
+                    slot = slots[si]
+                    if stalled or slot is None or lens[si] > 0:
+                        continue
+                    r = reqs[slot.req]
+                    s = r.prompt.shape[0]
+                    pos = slot.filled
+                    nv = min(C, s - pos)
+                    toks = np.zeros((1, C), np.int32)
+                    toks[0, :nv] = r.prompt[pos:pos + nv]
+                    with trace.span("engine.prefill") as sp:
+                        if sp:
+                            sp.attrs.update(req=slot.req, pos=pos, nv=nv,
+                                            rows=C)
+                        logits = self.prefill(toks, tables[si:si + 1], pos,
+                                              nv)
+                    prefill_chunks += 1
+                    slot.filled = pos + nv
+                    if self.prefix_cache:
+                        full = slot.filled // self.page
+                        if full > slot.registered:
+                            self.cache.register_prefix(
+                                r.prompt[:full * self.page], slot.ids[:full])
+                            slot.registered = full
+                    if slot.filled == s:                # prefill done -> ACTIVE
+                        with trace.span("engine.first_token") as sp:
+                            if sp:
+                                sp.attrs["req"] = slot.req
+                            tok = int(sample(logits, temperature, gen))
+                        lens[si] = s
+                        pend[si] = tok
+                        emit(slot.req, tok)
+                        slot.remaining -= 1
+                        if slot.remaining == 0:
+                            retire(si)
+
+                # 7a. grow: a slot writing into a fresh page allocates its
+                # next block; exhaustion preempts latest-admitted first
+                for si in range(B):
+                    if stalled:
+                        break
+                    slot = slots[si]
+                    if slot is None or lens[si] == 0:
+                        continue
+                    if int(lens[si]) < len(slot.ids) * self.page:
+                        continue                        # page not full yet
+                    got = self.cache.alloc(1)
+                    if got is None:
+                        for vi in victims_latest_first():
+                            victim_is_self = vi == si
+                            preempt(vi, "pool exhausted growing slot "
+                                        f"{si} at length {int(lens[si])}")
+                            if victim_is_self:
+                                break
+                            got = self.cache.alloc(1)
+                            if got is not None:
+                                break
+                    if got is None or slots[si] is None:
+                        continue                        # grower was evicted
+                    slot.ids.append(got[0])
+                    tables[si, len(slot.ids) - 1] = got[0]
+
+                # 7b. decode every ACTIVE slot.  PREFILLING slots sit at lens
+                # 0 with a null table row, so they attend one masked null row
+                # and their write lands in the null block, like idle slots.
+                active = [] if stalled else \
+                    [i for i, sl in enumerate(slots)
+                     if sl is not None and lens[i] > 0]
+                if active:
+                    dec_tables = tables.copy()
+                    for si in range(B):
+                        if slots[si] is not None and lens[si] == 0:
+                            dec_tables[si] = 0
+                    with trace.span("engine.decode") as sp:
+                        if sp:
+                            sp.attrs.update(
+                                reqs=[slots[si].req for si in active],
+                                n=len(active), max_batch=B)
+                        logits = self.decode(pend, dec_tables, lens)
+                    # the tick's one device-to-host transfer (it also waits
+                    # for the tick's pool writes)
+                    with trace.span("engine.decode_wait"):
+                        toks = sample(logits, temperature, gen).cpu().numpy()
+                    decode_steps += 1
+                    lens[active] += 1
+                    for si in active:
+                        slot = slots[si]
+                        tok = int(toks[si])
+                        pend[si] = tok
+                        emit(slot.req, tok)
+                        slot.remaining -= 1
+                        if slot.remaining == 0:
+                            retire(si)
+                tick += 1
+                if checking:
+                    self.cache.check_invariants()
+                    self._assert_refcount_exact(slots, seized)
 
         # the run can end inside a seizure window: hand those blocks back
         for _, ids in seized:
