@@ -1301,9 +1301,10 @@ def phase_sync_profile(torch, cfg, params):
 
 def moe_gmm_record(torch, cfg, cases=None, seed: int = 4):
     """``moe_gmm`` at ``cfg``'s full width (bf16) at the shapes its MoE
-    layers give it, by default qwen3-moe's (E = 128 experts): a paged
-    decode tick's gate/up and down products (8 slots x capacity 4 = 32
-    rows an expert), a 2000-row sync prefill's gate/up (capacity 160),
+    layers give it, by default qwen3-moe's (E = 128 experts): decode
+    gate/up and down products at 32 rows an expert (8 slots x capacity
+    4; the engine's buffers hold min(capacity, S) = 1 row a slot, 8),
+    a 2000-row sync prefill's gate/up (capacity 160),
     and a ragged case (C = 44, N = 1000); ``cases`` maps a label to
     (C, K, N, timed).  Each is held to the plain version; the timed ones
     beside ``torch.bmm`` and their bound.  The record is the first timed

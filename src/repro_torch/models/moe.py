@@ -2,9 +2,10 @@
 (twin of ``repro.models.moe``).
 
 Groups are batch rows.  Each group's S tokens pick their top-k experts;
-each expert takes the first C = :func:`capacity` assignments that reach
-it in token order and drops the rest (Switch semantics).  Integer slot
-maps move the tokens with gathers:
+each expert takes the first :func:`capacity` assignments that reach it
+in token order and drops the rest (Switch semantics).  Its slot buffer
+holds C = min(capacity, S) rows a group, all that S tokens can fill
+(:func:`moe_apply`).  Integer slot maps move the tokens with gathers:
 
   dispatch:  xbuf[g, e, c, :] = x[g, src[g, e, c], :]
   experts:   ybuf = swiglu(xbuf @ We_in) @ We_out
@@ -30,8 +31,9 @@ expert's rows through a contiguous copy (:class:`_Relayout`); without a
 mesh neither touches DTensor.
 
 While :mod:`repro_torch.trace` records, each call leaves a
-``moe.dispatch`` record (E, B, C) holding the slot occupancy mask it
-computes anyway; read, it is the kept assignments per expert.
+``moe.dispatch`` record (E, B, C, and ``capacity``: where C is less, the
+buffers shrank) holding the slot occupancy mask it computes anyway;
+read, it is the kept assignments per expert.
 """
 
 from __future__ import annotations
@@ -177,11 +179,12 @@ def _expert_mm(x4: torch.Tensor, w3: torch.Tensor, *, use_kernels: bool,
 
 
 def _fold(x4: torch.Tensor) -> torch.Tensor:
-    """(B, E, C, K) -> (E, B * C, K)."""
+    """(B, E, C, K) -> (E, B * C, K), contiguous (``moe_gmm`` takes no
+    strides; at C = 1 the reshape alone would be a strided view)."""
     if is_dtensor(x4):
         return _Relayout.apply(x4, True, x4.shape[0])
     B, E, C, K = x4.shape
-    return x4.transpose(0, 1).reshape(E, B * C, K)
+    return x4.transpose(0, 1).reshape(E, B * C, K).contiguous()
 
 
 def _unfold(y: torch.Tensor, B: int) -> torch.Tensor:
@@ -227,11 +230,20 @@ def _kept_per_expert(used: torch.Tensor) -> torch.Tensor:
 
 def moe_apply(cfg: ModelConfig, w, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, aux_loss).  Groups = batch rows."""
+    """x: (B, S, D) -> (y, aux_loss).  Groups = batch rows.
+
+    The slot buffers hold C = min(capacity(cfg, S), S) rows an expert a
+    group, and lose no assignment that capacity keeps: a token's top-k
+    experts are distinct (one sort), so an expert takes at most S
+    assignments of a group, each at a position ``pos`` <= S - 1, and
+    ``pos < capacity`` holds exactly where ``pos < C`` does.  Groups of
+    S >= capacity (prefill chunks, training) are as before; shorter ones
+    (a decode step's one-token groups) shrink, C = 1 at S = 1."""
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
-    C = capacity(cfg, S)
+    cap = capacity(cfg, S)
+    C = min(cap, S)
     x = shard(x, "batch", None, "tp")
     gates, idx, aux = router_topk(cfg, w["router"], x)
 
@@ -239,7 +251,7 @@ def moe_apply(cfg: ModelConfig, w, x: torch.Tensor
     pos, keep, src, used = _slot_maps(cfg, idx_flat, C)
     rec = trace.count("moe.dispatch")
     if rec:
-        rec.attrs.update(E=E, B=B, C=C)
+        rec.attrs.update(E=E, B=B, C=C, capacity=cap)
         rec.hold(used.view(B, E, C), _kept_per_expert)
 
     # token index of each assignment; gather tokens into expert slot buffers

@@ -437,6 +437,78 @@ def test_moe_engines_kernel_path_matches_plain_path(cuda):
         plain, reqs, p_res, s_res, engine=sync))
 
 
+def _moe_on_capacity_buffers(cfg, w, x):
+    """``moe_apply``'s routing, products and combine (no shared experts)
+    on slot buffers of the full capacity C rows an expert a group, the
+    reference's layout, every product through ``moe_gmm``."""
+    from repro_torch.models import moe
+    F = torch.nn.functional
+    B, S, D = x.shape
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    C = moe.capacity(cfg, S)
+    gates, idx, _ = moe.router_topk(cfg, w["router"], x)
+    idx = idx.reshape(B, S * K)
+    pos, keep, src, used = moe._slot_maps(cfg, idx, C)
+    xbuf = torch.gather(x, 1, (src // K)[..., None].expand(-1, -1, D)) \
+        * used[..., None].to(x.dtype)
+    xe = xbuf.reshape(B, E, C, D).transpose(0, 1).reshape(E, B * C, D)
+    h = (F.silu(moe_gmm(xe, w["we_g"]).float())
+         * moe_gmm(xe, w["we_i"]).float()).to(x.dtype)
+    ybuf = moe_gmm(h, w["we_o"]).reshape(E, B, C, D).transpose(0, 1)
+    slot = torch.where(keep, idx * C + pos, 0)
+    y_k = torch.gather(ybuf.reshape(B, E * C, D), 1,
+                       slot[..., None].expand(-1, -1, D))
+    gk = (gates.reshape(B, S * K) * keep.float()).to(x.dtype)
+    return (y_k * gk[..., None]).reshape(B, S, K, D).sum(dim=2), C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 128])
+def test_moe_decode_one_row_buffers_equal_capacity_buffers(cuda, B):
+    """The reduced qwen3-moe's decode step (B one-token groups, capacity
+    4): ``moe_apply``'s one-row slot buffers give, bit for bit, what the
+    three products give on the capacity's 4-row buffers through
+    ``moe_gmm``, in three launches."""
+    from repro_torch.models import moe
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    g = torch.Generator(device="cuda").manual_seed(B)
+    w = moe.init_moe(cfg, g, cuda)
+    x = torch.randn((B, 1, cfg.d_model), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    before = launch_counts()["moe_gmm"]
+    y, _ = moe.moe_apply(cfg, w, x)
+    torch.cuda.synchronize()
+    assert launch_counts()["moe_gmm"] == before + 3
+    want, C = _moe_on_capacity_buffers(cfg, w, x)
+    assert C == 4
+    assert torch.equal(y, want), int((y != want).sum())
+
+
+@pytest.mark.cuda
+def test_paged_decode_runs_one_row_buffers(cuda):
+    """The paged engine on the reduced qwen3-moe: three ``moe_gmm``
+    launches a layer a step, and every decode step's dispatch records
+    one-row buffers under a capacity of 4."""
+    from repro_torch import trace
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    reqs = get_trace("base")(8, cfg.vocab_size, seed=2)
+    paged = PagedServeEngine(cfg, params, max_len=128, max_batch=8)
+    reset_launch_counts()
+    trace.clear()
+    with trace.recording():
+        res, stats = paged.run(reqs)
+    assert launch_counts()["moe_gmm"] == 3 * cfg.n_layers * (
+        stats.decode_steps + stats.prefill_chunks)
+    assert [r.status for r in res] == [OK] * len(reqs)
+    decode = [r.attrs for r in trace.records()
+              if r.name == "moe.dispatch" and r.attrs["B"] == 8]
+    trace.clear()
+    assert len(decode) == cfg.n_layers * stats.decode_steps
+    assert all((a["C"], a["capacity"]) == (1, 4) for a in decode), decode
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,nh,hd,G,ds,offset", [

@@ -8,7 +8,8 @@ and are converted; inputs are drawn from a numpy seed.
 * ``capacity``, ``router_topk`` (gates, indices, aux loss; tied router
   probabilities must break toward the lower expert as ``jax.lax.top_k``
   breaks them), ``_slot_maps`` (positions, capacity drops, the sink slot
-  that the reference's ``mode="drop"`` scatter maps to).
+  that the reference's ``mode="drop"`` scatter maps to); slot buffers
+  of min(C, S) rows an expert keep what the reference's C rows keep.
 * ``moe_apply`` on both paths: the port's ``use_kernels=False`` against
   the reference's ``use_pallas=False``, and the port's kernel path (the
   kernel's plain version on the CPU) against the reference's Pallas
@@ -142,21 +143,28 @@ def test_slot_maps_match_reference():
             == np.minimum(counts, C)).all()
 
 
-CASES = [(d, k, False) for d in RTOL for k in (False, True)] \
+PATHS = [(d, k, False) for d in RTOL for k in (False, True)] \
     + [("float32", False, True), ("float32", True, True),
        ("bfloat16", True, True)]
+# (B, S): a ragged capacity (S 45 >= C 32), decode's one-token groups
+# (S 1 < C 4) and two-token groups (S 2 < C 4), whose slot buffers hold
+# S rows an expert where the reference's hold C.
+SHAPES = [(2, 45), (8, 1), (3, 2)]
+CASES = [p + shape for shape in SHAPES for p in PATHS]
 IDS = [f"{d}-{'kernels' if k else 'plain'}{'-shared' if s else ''}"
-       for d, k, s in CASES]
+       + ("" if (B, S) == SHAPES[0] else f"-B{B}-S{S}")
+       for d, k, s, B, S in CASES]
 
 
-@pytest.mark.parametrize("dtype,kernels,shared", CASES, ids=IDS)
-def test_moe_apply_matches_reference(dtype, kernels, shared):
+@pytest.mark.parametrize("dtype,kernels,shared,B,S", CASES, ids=IDS)
+def test_moe_apply_matches_reference(dtype, kernels, shared, B, S):
     jcfg, cfg = _cfgs(dtype, kernels, shared)
     jw, w = _weights(jcfg, seed=5)
     if dtype != "float32":
         assert w["we_g"].dtype == TORCH_DT[dtype]
-    jx, x = _x((2, 45, cfg.d_model), dtype, seed=6)
-    assert moe.capacity(cfg, 45) % 128                  # ragged C
+    jx, x = _x((B, S, cfg.d_model), dtype, seed=6)
+    C = moe.capacity(cfg, S)
+    assert C % 128 and (S >= C) == (S == 45)        # ragged C; S < C
     with kdispatch.decision_scope() as decisions:
         jy, jaux = jax_moe.moe_apply(jcfg, jw, jx)
     dec = decisions.get("moe_gmm")
@@ -165,9 +173,63 @@ def test_moe_apply_matches_reference(dtype, kernels, shared):
     else:
         assert dec is None
     y, aux = moe.moe_apply(cfg, w, x)
-    assert y.shape == (2, 45, cfg.d_model) and y.dtype == TORCH_DT[dtype]
+    assert y.shape == (B, S, cfg.d_model) and y.dtype == TORCH_DT[dtype]
     _close(y, jy, RTOL[dtype])
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+
+
+def _distinct_topk(rng, G, S, E, K, p):
+    """(G, S*K) assignments in token order: each token's K distinct
+    experts, drawn without replacement with weights ``p`` (skewed, so
+    that a group of S >= C overflows)."""
+    return np.stack([np.concatenate([rng.choice(E, K, replace=False, p=p)
+                                     for _ in range(S)])
+                     for _ in range(G)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 5, 12, 24])
+def test_slot_buffers_hold_what_a_group_can_fill(S, monkeypatch):
+    """Distinct top-k experts put each assignment at a position below S
+    in its expert, so buffers of min(C, S) rows keep what C rows keep.
+    16 experts, top-4 (C 4 while S <= 12, 8 at S 24): the port's maps at
+    min(C, S) keep exactly the reference's assignments at C, at the same
+    positions and slots; the reference's slots at positions >= S are
+    never used; at S >= C the maps are the reference's; and the buffers
+    ``moe_apply`` hands ``_expert_mm`` have min(C, S) rows."""
+    spec = dict(n_experts=16, top_k=4)
+    jcfg, cfg = _cfgs()
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
+                                                             **spec))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **spec))
+    E, K, G = 16, 4, 5
+    C = moe.capacity(cfg, S)
+    Cb = min(C, S)
+    assert C == jax_moe.capacity(jcfg, S) == (8 if S == 24 else 4)
+    p = np.full(E, 0.5 / (E - 3))
+    p[:3] = [0.3, 0.1, 0.1]
+    rng = np.random.default_rng(S)
+    idx = _distinct_topk(rng, G, S, E, K, p)
+    jpos, jkeep, jsrc, jused = (np.asarray(a) for a in jax_moe._slot_maps(
+        jcfg, jnp.asarray(idx), C))
+    pos, keep, src, used = (t.numpy() for t in moe._slot_maps(
+        cfg, torch.from_numpy(idx), Cb))
+    np.testing.assert_array_equal(pos, jpos)
+    np.testing.assert_array_equal(keep, jkeep)
+    assert pos.max() <= S - 1
+    jused, jsrc = jused.reshape(G, E, C), jsrc.reshape(G, E, C)
+    assert not jused[:, :, S:].any()
+    np.testing.assert_array_equal(used.reshape(G, E, Cb), jused[:, :, :Cb])
+    np.testing.assert_array_equal(src.reshape(G, E, Cb), jsrc[:, :, :Cb])
+    if S >= C:
+        assert Cb == C and not keep.all()           # drops happened
+    rows = []
+    expert_mm = moe._expert_mm
+    monkeypatch.setattr(moe, "_expert_mm", lambda x4, w3, **kw: (
+        rows.append(x4.shape[2]), expert_mm(x4, w3, **kw))[1])
+    w = moe.init_moe(cfg, torch.Generator().manual_seed(S),
+                     torch.device("cpu"))
+    moe.moe_apply(cfg, w, torch.randn((G, S, cfg.d_model)))
+    assert rows == [Cb] * 3
 
 
 def test_kernel_path_rounds_like_the_reference_kernel_path():

@@ -10,7 +10,8 @@ of the paged engine and the MoE dispatch, on the CPU.
   request has ``arrival_time <= admit_time <= emit_times[0]``.
 * Recording changes no token, status, tick or ``RunStats`` field.
 * ``moe.dispatch``'s kept rows per expert equal a count made from the
-  router's assignments, clamped at the capacity.
+  router's assignments, clamped at the capacity; its C is the buffers'
+  rows, min(capacity, S), with ``capacity`` beside it.
 * Under ``torch.profiler`` every recorded span is a ``user_annotation``
   of the same name and nesting in the exported Chrome trace, and one
   map from ``perf_counter`` to the trace's wall-clock stamps puts every
@@ -160,27 +161,34 @@ def test_recording_changes_no_token_status_tick_or_stat(name):
              b.preemptions)
 
 
-@pytest.mark.parametrize("router", ["drawn", "tied"])
-def test_moe_dispatch_counts_kept_rows(router):
+@pytest.mark.parametrize("router,B,S", [
+    ("drawn", 3, 16), ("tied", 3, 16), ("drawn", 8, 1), ("tied", 8, 1)],
+    ids=["drawn", "tied", "drawn-one_token", "tied-one_token"])
+def test_moe_dispatch_counts_kept_rows(router, B, S):
+    """C is the rows an expert's buffer holds a group, min(capacity, S):
+    at S 16 the capacity (12), at one token 1 (capacity 4)."""
     cfg = get_config("qwen3-moe-235b-a22b").reduced()
     w = init_moe(cfg, torch.Generator().manual_seed(1), torch.device("cpu"))
     if router == "tied":            # every token picks experts 0 and 1
         w["router"] = torch.zeros_like(w["router"])
-    B, S = 3, 16
     x = torch.randn((B, S, cfg.d_model),
                     generator=torch.Generator().manual_seed(2)).to(
                         torch.bfloat16)
     with trace.recording():
         moe_apply(cfg, w, x)
     (rec,) = trace.records()
-    E, C = cfg.moe.n_experts, capacity(cfg, S)
+    E, cap = cfg.moe.n_experts, capacity(cfg, S)
+    C = min(cap, S)
+    assert (cap, C) == ((12, 12) if S == 16 else (4, 1))
     assert rec.name == "moe.dispatch" and rec.parent is None
-    assert rec.attrs == {"E": E, "B": B, "C": C}
+    assert rec.attrs == {"E": E, "B": B, "C": C, "capacity": cap}
     _, idx, _ = router_topk(cfg, w["router"], x)
     per_group = torch.nn.functional.one_hot(
         idx.reshape(B, -1), E).sum(1)                            # (B, E)
-    want = per_group.clamp(max=C).sum(0).numpy()
-    if router == "tied":
+    want = per_group.clamp(max=cap).sum(0).numpy()
+    if S == 1:
+        assert int(want.sum()) == B * cfg.moe.top_k        # none dropped
+    elif router == "tied":
         assert (per_group[:, 0] > C).all()                     # overflow
     np.testing.assert_array_equal(rec.value(), want)
     np.testing.assert_array_equal(rec.value(), want)           # read once
